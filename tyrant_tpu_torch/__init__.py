@@ -1,0 +1,16 @@
+"""tyrant_tpu_torch — the wavefront path tracer of ``tyrant_tpu`` in
+PyTorch, with hand-written CUDA kernels for NVIDIA Hopper.
+
+The JAX package ``tyrant_tpu`` is the reference.  This package imports its
+framework-free host modules (``config``, ``scene.bvh``, ``scene.procgen``,
+``native``) and ports the rest.  It never imports ``jax``.
+
+Device rule: every function takes its device from its tensors (or from an
+explicit ``device`` argument).  CUDA tensors go through the hand-written
+kernels in :mod:`tyrant_tpu_torch.ops.kernels`; CPU tensors go through
+their plain PyTorch versions.  Nothing picks a device on its own.
+"""
+
+from .device import require_cuda  # noqa: F401
+
+__version__ = "0.1.0"

@@ -1,0 +1,21 @@
+"""Device helpers.  No code in this package chooses a device by itself:
+callers name one, and CUDA is checked for where it is asked for."""
+
+from __future__ import annotations
+
+import torch
+
+
+def require_cuda() -> None:
+    """Raise unless a CUDA device is usable."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available: this needs an NVIDIA GPU "
+                           "and a CUDA build of PyTorch")
+
+
+def resolve(device) -> torch.device:
+    """``device`` as a torch.device; a CUDA device must exist."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        require_cuda()
+    return dev

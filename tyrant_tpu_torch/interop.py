@@ -1,0 +1,59 @@
+"""Carry the JAX package's arrays, given as numpy, into the port's objects.
+
+The tests feed one captured JAX scene, state and camera to both packages
+through these functions, so the two run on identical inputs.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from .camera import CameraParams
+from .ops.kernels.traverse import PacketTables
+from .ops.traverse import BVHDevice
+from .render import RenderState
+from .scene.scene import SceneData, scene_data
+
+SCENE_LEAVES = ("node_packed", "miss_flat", "tri_packed", "leaf_packed",
+                "tri_shade", "sphere_table")
+STATE_FIELDS = ("accum", "origin", "direction", "direct", "pending", "pixel",
+                "bounces", "last_specular", "n_carried", "start_position",
+                "frame", "shadow_rays")
+
+
+def scene_from_numpy(leaves: Mapping[str, np.ndarray], rows: np.ndarray,
+                     device) -> tuple[SceneData, PacketTables]:
+    """``leaves``: the SceneData arrays named in SCENE_LEAVES (the BVH's
+    four under their BVHDevice names); ``rows``: PacketTables.rows."""
+    missing = [k for k in SCENE_LEAVES if k not in leaves]
+    if missing:
+        raise ValueError(f"scene leaves missing: {missing}")
+    bvh = BVHDevice.from_numpy(leaves["node_packed"], leaves["miss_flat"],
+                               leaves["tri_packed"], leaves["leaf_packed"],
+                               device)
+    sd = scene_data(bvh, leaves["tri_shade"], leaves["sphere_table"], device)
+    return sd, PacketTables(bvh, rows=np.asarray(rows))
+
+
+def state_from_numpy(fields: Mapping[str, np.ndarray], device) -> RenderState:
+    """``fields``: the RenderState fields named in STATE_FIELDS."""
+    dtypes = dict(pixel=torch.int32, bounces=torch.int32,
+                  last_specular=torch.bool, n_carried=torch.int64,
+                  start_position=torch.int64, frame=torch.int64,
+                  shadow_rays=torch.int64)
+    return RenderState(**{
+        k: torch.as_tensor(np.array(fields[k]), device=device)
+        .to(dtypes.get(k, torch.float32)) for k in STATE_FIELDS})
+
+
+def camera_from_numpy(position, direction, right, up, focal_distance,
+                      lens_radius, device) -> CameraParams:
+    def t(a):
+        return torch.as_tensor(np.array(a, np.float32), device=device)
+    return CameraParams(position=t(position), direction=t(direction),
+                        right=t(right), up=t(up),
+                        focal_distance=t(focal_distance),
+                        lens_radius=t(lens_radius))

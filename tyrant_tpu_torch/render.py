@@ -1,0 +1,616 @@
+"""The wavefront render step, the port of ``tyrant_tpu/render.py`` for the
+main path (the reference estimator at the default static gates).
+
+One :func:`render_step` tops up the fixed-size ray queue with camera rays
+(raygen), finds every ray's closest hit (extend), shades it with a BSDF
+sample, a next-event shadow ray and Russian roulette (shade), tests the
+shadow rays (connect), and runs one stable sort that both compacts the
+survivors for the next step and orders finished paths by pixel for the
+accumulation.  Extend and connect go through the traversal kernel and the
+accumulation through the accumulation kernel (``ops/kernels``); the rest
+is plain PyTorch.
+
+State lives in tensors on one device.  Unlike the JAX package, the step
+updates ``state.accum`` in place (the JAX Renderer donates its state).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch.profiler import record_function
+
+from tyrant_tpu.config import EPSILON, INV_PI, PI, VERY_FAR, RenderConfig
+
+from . import sky as skymod
+from .camera import Camera, CameraParams
+from .device import resolve
+from .ops import rng
+from .ops.intersect import intersect_spheres, ray_sphere
+from .ops.kernels.accum import accumulate_sorted, sentinel
+from .ops.kernels.traverse import (PacketTables, any_hit_packets,
+                                   closest_hit_packets)
+from .ops.sampling import (concentric_sample_disk, cone_sample,
+                           cosine_hemisphere_sample, dot, normalize,
+                           phong_lobe_sample, reflect, sphere_surface_sample)
+from .ops.tonemap import tonemap_image
+from .scene.scene import DIFF, LIGHT, PHONG, REFR, SPEC, Scene, SceneData
+
+PHONG_EXPONENT = 40.0
+_KEY_GRID = 8  # survivor-ordering spatial grid resolution
+
+# RenderConfig fields the port implements; the TPU-only selectors in the
+# second group are accepted and have no effect (CUDA tensors always take
+# the kernels, CPU tensors the plain versions)
+_PORTED_FIELDS = {"width", "height", "num_rays", "max_bounces", "epsilon",
+                  "sky", "bvh", "focal_distance_scale", "raygen_order",
+                  "tonemap", "exposure"}
+_IGNORED_SELECTORS = {"use_packet_kernel", "use_accum_kernel",
+                      "packet_kernel_mode", "adaptive_connect",
+                      "adaptive_connect_frac", "fuse_step_chains",
+                      "use_kernel_normals"}
+
+
+def check_config(cfg: RenderConfig) -> None:
+    """Raise ValueError naming the first field that is off its default and
+    that the port does not implement."""
+    default = RenderConfig()
+    for f in dataclasses.fields(RenderConfig):
+        if f.name in _PORTED_FIELDS or f.name in _IGNORED_SELECTORS:
+            continue
+        if getattr(cfg, f.name) != getattr(default, f.name):
+            raise ValueError(f"RenderConfig.{f.name}={getattr(cfg, f.name)!r} "
+                             "is not ported to tyrant_tpu_torch")
+
+
+@dataclasses.dataclass
+class RenderState:
+    """Render state: accumulation buffer, carried ray queue, counters.
+
+    Scalars are 0-d int64 tensors on the state's device, so a step never
+    waits for the device."""
+
+    accum: torch.Tensor          # [P, 4] rgb radiance sum, a = paths
+    origin: torch.Tensor         # [N, 3]
+    direction: torch.Tensor      # [N, 3]
+    direct: torch.Tensor         # [N, 3] path throughput
+    pending: torch.Tensor        # [N, 3] radiance not yet flushed
+    pixel: torch.Tensor          # [N] i32
+    bounces: torch.Tensor        # [N] i32
+    last_specular: torch.Tensor  # [N] bool
+    n_carried: torch.Tensor      # survivors at the queue's tail
+    start_position: torch.Tensor  # raygen round-robin counter
+    frame: torch.Tensor          # RNG frame counter (uint32 value)
+    shadow_rays: torch.Tensor    # valid NEE shadow rays traced so far
+
+
+def init_state(cfg: RenderConfig, device) -> RenderState:
+    n, p = cfg.num_rays, cfg.width * cfg.height
+
+    def scalar(v):
+        return torch.tensor(v, dtype=torch.int64, device=device)
+    return RenderState(
+        accum=torch.zeros((p, 4), dtype=torch.float32, device=device),
+        origin=torch.zeros((n, 3), dtype=torch.float32, device=device),
+        direction=torch.tensor([[1.0, 0.0, 0.0]], device=device).repeat(n, 1),
+        direct=torch.zeros((n, 3), dtype=torch.float32, device=device),
+        pending=torch.zeros((n, 3), dtype=torch.float32, device=device),
+        pixel=torch.zeros((n,), dtype=torch.int32, device=device),
+        bounces=torch.zeros((n,), dtype=torch.int32, device=device),
+        last_specular=torch.zeros((n,), dtype=torch.bool, device=device),
+        n_carried=scalar(0), start_position=scalar(0),
+        frame=scalar(1),  # never 0: it keys the RNG
+        shadow_rays=scalar(0))
+
+
+def reset_accumulation(state: RenderState) -> RenderState:
+    """Camera or sun moved: zero the accumulation buffer and drop the
+    carried rays."""
+    return dataclasses.replace(state, accum=torch.zeros_like(state.accum),
+                               n_carried=torch.zeros_like(state.n_carried))
+
+
+# --------------------------------------------------------------------------
+# raygen
+# --------------------------------------------------------------------------
+
+def _primary_dirs(camera: CameraParams, ni, nj):
+    """Perspective primary directions from image-plane coordinates."""
+    return normalize(camera.direction[None] + ni[:, None] * camera.right[None]
+                     + nj[:, None] * camera.up[None])
+
+
+def _raygen(cfg: RenderConfig, camera: CameraParams, start_position, frame):
+    """Fresh camera rays for every queue slot (the merge keeps carried
+    survivors in the tail slots)."""
+    n = cfg.num_rays
+    w, h = cfg.width, cfg.height
+    dev = camera.position.device
+    gen_index = torch.arange(n, dtype=torch.int64, device=dev)
+    scan = (start_position + gen_index) % (w * h)
+    if cfg.raygen_order == "tiled8" and w % 8 == 0 and h % 8 == 0:
+        # 8x8 screen tiles: consecutive rays share a tile (coherent packets)
+        tile = scan // 64
+        within = scan % 64
+        x_i = (tile % (w // 8)) * 8 + within % 8
+        y_i = (tile // (w // 8)) * 8 + within // 8
+        pixel = y_i * w + x_i
+    else:
+        pixel = scan
+        x_i = pixel % w
+        y_i = pixel // w
+    x = x_i.to(torch.float32)
+    y = y_i.to(torch.float32)
+
+    # every seed keeps the JAX package's row-offset part (0: one image strip)
+    seed = rng.seed_from(frame, gen_index, 0, 0x5EED)
+    seed, uv = rng.random_2d_stratified(seed)
+    px = x - uv[..., 0]  # the reference subtracts the jitter
+    py = y - uv[..., 1]
+    ni = px / w - 0.5
+    nj = (h - py) / h - 0.5
+
+    dir_fp = _primary_dirs(camera, ni, nj)
+    base = camera.position[None]
+    conv = base + (camera.focal_distance * cfg.focal_distance_scale) * dir_fp
+    seed, l0 = rng.random_float(seed)
+    seed, l1 = rng.random_float(seed)
+    p_lens = camera.lens_radius * concentric_sample_disk(
+        torch.stack([l0, l1], dim=-1))
+    origin = base + p_lens[:, 0:1] * camera.right[None] \
+        + p_lens[:, 1:2] * camera.up[None]
+    direction = normalize(conv - origin)
+    return dict(origin=origin, direction=direction,
+                direct=torch.ones((n, 3), dtype=torch.float32, device=dev),
+                pending=torch.zeros((n, 3), dtype=torch.float32, device=dev),
+                pixel=pixel.to(torch.int32),
+                bounces=torch.zeros((n,), dtype=torch.int32, device=dev),
+                # RayQueue default: lastSpecular = true
+                last_specular=torch.ones((n,), dtype=torch.bool, device=dev))
+
+
+# --------------------------------------------------------------------------
+# extend
+# --------------------------------------------------------------------------
+
+def _intersect_scene(origin, direction, scene: SceneData,
+                     tables: PacketTables):
+    """Spheres first, then the BVH seeded with the sphere distance (a
+    triangle wins only when closer by more than epsilon).  Returns
+    (t, identifier, is_triangle)."""
+    t_sph, sph_id = intersect_spheres(origin, direction, scene.sphere_center,
+                                      scene.sphere_radius)
+    t, tri_id = closest_hit_packets(origin, direction, tables, t_init=t_sph)
+    is_tri = tri_id >= 0
+    return t, torch.where(is_tri, tri_id, sph_id), is_tri
+
+
+# --------------------------------------------------------------------------
+# shade
+# --------------------------------------------------------------------------
+
+def _col(x):
+    return x[:, None]
+
+
+def _shade_surface_fetch(scene: SceneData, o, ident, is_tri, hit):
+    """Hit-surface data: sphere rows by index, triangle rows from the
+    tri_shade table.  Returns (is_sphere, srow, normal, refl_tri,
+    color_tri)."""
+    sid = torch.clamp(ident, 0, scene.sphere_table.shape[0] - 1).long()
+    is_sphere = hit & ~is_tri
+    srow = scene.sphere_table[sid]
+    normal_sphere = (o - srow[:, 0:3]) / _col(srow[:, 3])
+    tid = torch.clamp(ident, 0, scene.tri_shade.shape[0] - 1).long()
+    trow = scene.tri_shade[tid]
+    normal = torch.where(_col(is_sphere), normal_sphere, trow[:, 0:3])
+    return is_sphere, srow, normal, trow[:, 3].to(torch.int32), trow[:, 4:7]
+
+
+def _shade_emitter_hit(srow, hit, refl, last_spec_in, direct):
+    """Emitter hits: collect emission on specular-born paths and stop the
+    throughput of diffuse-born ones (NEE already counted them)."""
+    is_light = hit & (refl == LIGHT)
+    color = torch.where(_col(is_light & last_spec_in), direct * srow[:, 7:10],
+                        torch.zeros_like(direct))
+    direct = torch.where(_col(is_light & ~last_spec_in),
+                         torch.zeros_like(direct), direct)
+    return color, direct
+
+
+def _shade_nee_samples(scene: SceneData, sky_params: skymod.SkyParams,
+                       sun_dir, rays, o, normal, frame, slot, seed):
+    """The sun-cone sample, the 50/50 strategy coin and the light-sphere
+    sample with its geometry factors."""
+    n = o.shape[0]
+    sun_extent = 1.0 - sky_params.sun_angular_diameter_cos
+    seed, sun_sample = cone_sample(sun_dir.expand(n, 3), sun_extent, seed)
+    sun_cos = dot(normal, sun_sample)
+    # side stream: the coin leaves the main shade stream untouched
+    _, cs_u = rng.random_float(
+        rng.seed_from(frame, rays["pixel"], slot, 0, 0xC0F1))
+    choose_sun = cs_u < 0.5
+    li = max(scene.light_index, 0)
+    light_c = scene.sphere_center[li]
+    light_r = scene.sphere_radius[li]
+    light_e = scene.sphere_emission[li]
+    seed, lp = sphere_surface_sample(light_c.expand(n, 3), light_r, seed)
+    n_l = normalize(lp - light_c)
+    area = 4.0 * PI * light_r * light_r
+    lvec = lp - o
+    ldist2 = dot(lvec, lvec)
+    ldist = torch.sqrt(torch.clamp(ldist2, min=1e-20))
+    ldir = lvec / _col(ldist)
+    cos_surf = dot(normal, ldir)
+    cos_light = dot(n_l, -ldir)
+    solid_angle = cos_light * area / torch.clamp(ldist2, min=1e-20)
+    return (seed, sun_sample, sun_cos, choose_sun, light_e, ldir, ldist,
+            cos_surf, cos_light, solid_angle)
+
+
+def _shade_nee_weights(cfg: RenderConfig, scene: SceneData,
+                       sky_params: skymod.SkyParams, d, normal, direct, hit,
+                       refl, sun_dir, sun_sample, sun_cos, choose_sun,
+                       light_e, ldir, ldist, cos_surf, cos_light,
+                       solid_angle):
+    """DIFF and PHONG NEE estimators; returns the shadow-queue fields and
+    the reflection vector the PHONG bounce reuses."""
+    eps = cfg.epsilon
+    inv_p_sun = inv_p_light = 2.0  # 50/50 strategy coin
+    has_light = scene.light_index >= 0
+    sun_radiance = skymod.sun(sun_sample, sun_dir, sky_params)
+    c_diff = c_spec = 1e-5  # the reference's baked sun solid angle
+
+    diff_sun_color = inv_p_sun * direct * sun_radiance \
+        * _col(sun_cos * c_diff)
+    diff_sun_ok = choose_sun & (sun_cos > 0)
+    light_e2 = light_e[None]
+    nl_col = inv_p_light  # one light: its pick pdf is 1
+    diff_light_color = light_e2 * nl_col * direct \
+        * _col(solid_angle * INV_PI * cos_surf)
+    diff_light_ok = ~choose_sun & (cos_surf > 0) & (cos_light > 0) & has_light
+
+    pe = PHONG_EXPONENT
+    w_refl = normalize(d - normal * _col(2.0 * dot(normal, d)))
+    phong_cos_sun = dot(sun_sample, w_refl)
+    phong_sun_color = inv_p_sun * direct * ((pe + 2.0) * 0.5 * INV_PI) \
+        * sun_radiance * _col(sun_cos * torch.pow(
+            torch.clamp(phong_cos_sun, min=0.0), pe) * c_spec)
+    phong_sun_ok = choose_sun & (sun_cos > 0) & (phong_cos_sun > eps)
+    phong_cos_l = dot(ldir, w_refl)
+    phong_light_color = light_e2 * nl_col * direct \
+        * _col(solid_angle * (pe + 2.0) * 0.5 * INV_PI
+               * torch.pow(torch.clamp(phong_cos_l, min=0.0), pe) * cos_surf)
+    phong_light_ok = ~choose_sun & (cos_surf > 0) & (cos_light > 0) \
+        & (phong_cos_l > eps) & has_light
+
+    is_diff = hit & (refl == DIFF)
+    is_phong = hit & (refl == PHONG)
+    shadow_ok = (is_diff & (diff_sun_ok | diff_light_ok)) \
+        | (is_phong & (phong_sun_ok | phong_light_ok))
+    sun_c = _col(choose_sun)
+    shadow_dir = torch.where(sun_c, sun_sample, ldir)
+    shadow_color = torch.where(
+        _col(is_diff), torch.where(sun_c, diff_sun_color, diff_light_color),
+        torch.where(sun_c, phong_sun_color, phong_light_color))
+    # sun shadows use the ShadowQueue default max distance
+    shadow_maxd = torch.where(choose_sun, torch.full_like(ldist, VERY_FAR),
+                              ldist)
+    return (shadow_ok, shadow_dir, shadow_color, shadow_maxd, w_refl,
+            is_diff, is_phong)
+
+
+def _shade_bounce(cfg: RenderConfig, rays, d, o, normal, direct, hit, refl,
+                  outside, is_diff, is_phong, w_refl, obj_color, t_safe,
+                  seed):
+    """Bounce sampling: DIFF cosine hemisphere, SPEC mirror, REFR Fresnel/
+    TIR/Beer-Lambert, PHONG lobe with rejection.  Returns (seed, new_dir,
+    direct, new_last_spec, origin_out)."""
+    eps = cfg.epsilon
+    seed, diff_dir = cosine_hemisphere_sample(normal, seed)
+    diff_new_dir = torch.where(_col(rays["bounces"] < cfg.max_bounces),
+                               diff_dir, d)
+    spec_dir = reflect(d, normal)
+
+    # REFR: Schlick Fresnel + TIR, the reference's reversed-IoR convention
+    eta = 1.2
+    one = torch.ones_like(t_safe)
+    n1 = torch.where(outside, one * eta, one)
+    n2 = torch.where(outside, one, one * eta)
+    r0 = ((n1 - n2) / (n1 + n2)) ** 2
+    cos_i = -dot(normal, d)
+    nr = n2 / n1
+    sin_t2 = nr * nr * (1.0 - cos_i * cos_i)
+    tir = sin_t2 > 1.0
+    fresnel = torch.where(tir, one, r0 + (1.0 - r0) * torch.pow(
+        torch.clamp(1.0 - cos_i, min=0.0), 5.0))
+    seed, fr = rng.random_float(seed)
+    refr_reflects = fr < fresnel
+    cos_t = torch.sqrt(torch.clamp(1.0 - sin_t2, min=0.0))
+    refr_dir = _col(nr) * d + _col(nr * cos_i - cos_t) * normal
+    refr_new_dir = torch.where(_col(refr_reflects), spec_dir, refr_dir)
+    is_refr = hit & (refl == REFR)
+    beer = torch.exp(-obj_color * _col(t_safe))  # Beer-Lambert inside glass
+    direct = direct * torch.where(_col(is_refr & ~outside), beer,
+                                  torch.ones_like(beer))
+
+    # PHONG lobe with rejection resampling: 8 masked retries, then the
+    # ideal reflection
+    seed, cur = phong_lobe_sample(w_refl, PHONG_EXPONENT, seed)
+    ok = dot(cur, normal) > eps
+    for _ in range(8):
+        seed, cand = phong_lobe_sample(w_refl, PHONG_EXPONENT, seed)
+        take = ~ok & (dot(cand, normal) > eps)
+        cur = torch.where(_col(take), cand, cur)
+        ok = ok | take
+    phong_dir = torch.where(_col(ok), cur, w_refl)
+
+    new_dir = torch.where(_col(is_diff), diff_new_dir, d)
+    new_dir = torch.where(_col(hit & (refl == SPEC)), spec_dir, new_dir)
+    new_dir = torch.where(_col(is_refr), refr_new_dir, new_dir)
+    new_dir = torch.where(_col(is_phong), phong_dir, new_dir)
+    # LIGHT keeps its direction
+
+    new_last_spec = (hit & (refl == SPEC)) | (is_refr & refr_reflects)
+    zero = torch.zeros_like(normal)
+    origin_out = o \
+        + torch.where(_col(is_refr & ~refr_reflects), -2.0 * eps * normal,
+                      zero) \
+        + torch.where(_col(is_phong), eps * w_refl, zero)
+    return seed, new_dir, direct, new_last_spec, origin_out
+
+
+def _shade(cfg: RenderConfig, scene: SceneData, sky_params: skymod.SkyParams,
+           sun_dir, rays, t, ident, is_tri, frame):
+    """Shade every queue slot.  Returns (color, survive, next_rays,
+    shadow)."""
+    n = cfg.num_rays
+    eps = cfg.epsilon
+    d = rays["direction"]
+    slot = torch.arange(n, dtype=torch.int64, device=d.device)
+
+    hit = t < VERY_FAR
+    t_safe = torch.where(hit, t, torch.zeros_like(t))
+    o = rays["origin"] + d * _col(t_safe)
+
+    is_sphere, srow, normal, refl_tri, color_tri = _shade_surface_fetch(
+        scene, o, ident, is_tri, hit)
+    refl = torch.where(is_sphere, srow[:, 10].to(torch.int32), refl_tri)
+    refl = torch.where(hit, refl, torch.full_like(refl, DIFF))
+    obj_color = torch.where(_col(is_sphere), srow[:, 4:7], color_tri)
+
+    # throughput *= color for materials except REFR/LIGHT
+    mul_mask = hit & (refl != REFR) & (refl != LIGHT)
+    direct = rays["direct"] * torch.where(_col(mul_mask), obj_color,
+                                          torch.ones_like(obj_color))
+
+    outside = dot(normal, d) < 0
+    normal = torch.where(_col(outside), normal, -normal)
+    o = o + normal * eps
+
+    last_spec_in = rays["last_specular"]
+    color, direct = _shade_emitter_hit(srow, hit, refl, last_spec_in, direct)
+
+    seed = rng.seed_from(frame, rays["pixel"], slot, 0, 0x5ADE)
+    (seed, sun_sample, sun_cos, choose_sun, light_e, ldir, ldist, cos_surf,
+     cos_light, solid_angle) = _shade_nee_samples(
+        scene, sky_params, sun_dir, rays, o, normal, frame, slot, seed)
+    (shadow_ok, shadow_dir, shadow_color, shadow_maxd, w_refl, is_diff,
+     is_phong) = _shade_nee_weights(
+        cfg, scene, sky_params, d, normal, direct, hit, refl, sun_dir,
+        sun_sample, sun_cos, choose_sun, light_e, ldir, ldist, cos_surf,
+        cos_light, solid_angle)
+    seed, new_dir, direct, new_last_spec, origin_out = _shade_bounce(
+        cfg, rays, d, o, normal, direct, hit, refl, outside, is_diff,
+        is_phong, w_refl, obj_color, t_safe, seed)
+
+    # Russian roulette
+    p = torch.clamp(direct.amax(-1), max=1.0)
+    seed, rr = rng.random_float(seed)
+    survive = hit & (rays["bounces"] < cfg.max_bounces) & (p > eps) & (rr <= p)
+    direct_out = torch.where(_col(survive),
+                             direct / _col(torch.clamp(p, min=1e-20)), direct)
+
+    # miss: sky radiance (sun disc only for specular-born rays)
+    sky_v, sunsky_v = skymod.sky_and_sunsky(d, sun_dir, sky_params)
+    miss_col = torch.where(_col(last_spec_in), sunsky_v, sky_v)
+    color = color + torch.where(_col(hit), torch.zeros_like(color),
+                                rays["direct"] * miss_col)
+
+    next_rays = dict(origin=origin_out, direction=new_dir, direct=direct_out,
+                     pixel=rays["pixel"], bounces=rays["bounces"] + 1,
+                     last_specular=new_last_spec)
+    shadow = dict(origin=o, direction=shadow_dir, color=shadow_color,
+                  max_dist=shadow_maxd, valid=shadow_ok)
+    return color, survive, next_rays, shadow
+
+
+# --------------------------------------------------------------------------
+# connect
+# --------------------------------------------------------------------------
+
+def _connect(scene: SceneData, shadow, tables: PacketTables):
+    """Shadow rays: BVH any hit plus the sphere any hit
+    ((t + eps) < max distance).  Returns the unoccluded contribution."""
+    o, sdir = shadow["origin"], shadow["direction"]
+    valid = shadow["valid"]
+    maxd = torch.where(valid, shadow["max_dist"],
+                       torch.zeros_like(shadow["max_dist"]))
+    occluded = any_hit_packets(o, sdir, maxd, tables)  # invalid: maxd 0
+    t_all = ray_sphere(o[:, None, :], sdir[:, None, :],
+                       scene.sphere_center[None], scene.sphere_radius[None])
+    sph_occ = ((t_all > 0.0) & ((t_all + EPSILON) < maxd[:, None])).any(1)
+    occluded = occluded | sph_occ
+    return torch.where(_col(valid & ~occluded), shadow["color"],
+                       torch.zeros_like(shadow["color"]))
+
+
+# --------------------------------------------------------------------------
+# the full step
+# --------------------------------------------------------------------------
+
+def compaction_sort_key(next_rays, survive, node_packed, sent: int):
+    """Terminated rays sort first by pixel; survivors sort past the
+    sentinel, octant-major, then by the 8^3 grid cell of the bounce
+    origin."""
+    root_lo = node_packed[0, 0:3]
+    root_hi = node_packed[0, 3:6]
+    span = torch.clamp(root_hi - root_lo, min=1e-3)
+    g = _KEY_GRID
+    # clamp before the integer cast: out-of-range float -> int casts are
+    # undefined in C++ (XLA saturates), the clip that follows agrees
+    q = torch.clamp((next_rays["origin"] - root_lo) / span * float(g),
+                    0.0, g - 1.0).to(torch.int32)
+    cell = (q[:, 0] * g + q[:, 1]) * g + q[:, 2]
+    nneg = (next_rays["direction"] < 0).to(torch.int32)
+    octant = nneg[:, 0] + 2 * nneg[:, 1] + 4 * nneg[:, 2]
+    return torch.where(survive, sent + octant * (g ** 3) + cell,
+                       next_rays["pixel"])
+
+
+def merge_queue(cfg: RenderConfig, state: RenderState,
+                camera: CameraParams) -> dict:
+    """The step's ray queue (raygen top-off): the tail slots
+    [n - n_carried, n) keep the carried survivors, the front slots get
+    fresh camera rays."""
+    n = cfg.num_rays
+    gen = _raygen(cfg, camera, state.start_position, state.frame)
+    slot = torch.arange(n, dtype=torch.int64, device=state.accum.device)
+    keep = slot >= (n - state.n_carried)
+
+    def merge(car, new):
+        return torch.where(keep[:, None] if new.ndim == 2 else keep, car, new)
+
+    return {k: merge(getattr(state, k), gen[k])
+            for k in ("origin", "direction", "direct", "pending", "pixel",
+                      "bounces", "last_specular")}
+
+
+def render_step(state: RenderState, scene: SceneData, camera: CameraParams,
+                sun_dir, *, cfg: RenderConfig, tables: PacketTables,
+                sky_params: skymod.SkyParams | None = None) -> RenderState:
+    """One wavefront iteration.  Updates ``state.accum`` in place and
+    returns the next state.  Each stage runs inside a profiler range named
+    after it (raygen, extend, shade, connect, sort, accumulate), so a
+    ``torch.profiler`` trace splits the step's device time by stage."""
+    sky_params = sky_params or skymod.SkyParams(cfg.sky)
+    n = cfg.num_rays
+    n_pix = cfg.num_pixels
+
+    # 1. raygen top-off
+    with record_function("raygen"):
+        rays = merge_queue(cfg, state, camera)
+        generated = n - state.n_carried
+        start_next = (state.start_position + generated) % n_pix
+
+    # 2. extend
+    with record_function("extend"):
+        t, ident, is_tri = _intersect_scene(rays["origin"], rays["direction"],
+                                            scene, tables)
+
+    # 3. shade
+    with record_function("shade"):
+        color, survive, next_rays, shadow = _shade(
+            cfg, scene, sky_params, sun_dir, rays, t, ident, is_tri,
+            state.frame)
+
+    # 4. connect
+    with record_function("connect"):
+        shadow_contrib = _connect(scene, shadow, tables)
+
+    # 5. one stable sort: compaction of survivors AND pixel order of the
+    # terminated rays (shade's RNG is keyed by queue slot, so the order
+    # must equal the JAX package's stable multi-operand sort)
+    with record_function("sort"):
+        pend = rays["pending"] + (color + shadow_contrib)
+        sent = sentinel(n_pix)
+        key = compaction_sort_key(next_rays, survive, scene.bvh.node_packed,
+                                  sent)
+        # pixel (< 2^21) | bounces (<= 15) | lastSpecular in one column
+        packed = (next_rays["pixel"] << 5) | (next_rays["bounces"] << 1) \
+            | next_rays["last_specular"].to(torch.int32)
+        key_s, order = torch.sort(key, stable=True)
+        origin_s = next_rays["origin"][order]
+        direction_s = next_rays["direction"][order]
+        direct_s = next_rays["direct"][order]
+        pend_s = pend[order]
+        packed_s = packed[order]
+        n_carried = survive.sum()
+
+    # 6. flush the terminated rays' pending radiance (+1 path count)
+    with record_function("accumulate"):
+        term_s = key_s < sent
+        upd_pix = torch.clamp(key_s, max=sent).contiguous()
+        upd_vals = torch.where(
+            _col(term_s),
+            torch.cat([pend_s, torch.ones_like(pend_s[:, :1])], dim=1),
+            torch.zeros((n, 4), dtype=torch.float32, device=pend_s.device))
+        accum = accumulate_sorted(state.accum, upd_pix, upd_vals.contiguous())
+
+    return RenderState(
+        accum=accum, origin=origin_s, direction=direction_s, direct=direct_s,
+        pending=pend_s, pixel=packed_s >> 5, bounces=(packed_s >> 1) & 15,
+        last_specular=(packed_s & 1).to(torch.bool), n_carried=n_carried,
+        start_position=start_next, frame=(state.frame + 1) & 0xFFFFFFFF,
+        shadow_rays=state.shadow_rays + shadow["valid"].sum())
+
+
+class Renderer:
+    """Host-side wrapper: device upload, accumulation reset on camera or
+    sun movement, framebuffer resolve.
+
+    ``Renderer(scene, cfg, device="cuda").step(cam, n)`` runs the main
+    path on the GPU through the CUDA kernels; ``device="cpu"`` runs it
+    with the kernels' plain versions.  ``scene`` is a host :class:`Scene`
+    or, with ``tables``, a :class:`SceneData` already on ``device``."""
+
+    def __init__(self, scene, cfg: RenderConfig = RenderConfig(), *, device,
+                 sun_position=(0.05, 0.3), tables: PacketTables | None = None):
+        check_config(cfg)
+        self.cfg = cfg
+        self.device = resolve(device)
+        self.scene = scene.to_device(self.device) if isinstance(scene, Scene) \
+            else scene
+        self.tables = tables if tables is not None \
+            else PacketTables(self.scene.bvh)
+        if not self.tables.supported:
+            raise ValueError("the scene's fat-row table is unsupported (over "
+                             "2^24 rows or prims, or deeper than the "
+                             "traversal stack)")
+        self.sky_params = skymod.SkyParams(cfg.sky)
+        self.sun_position = tuple(sun_position)
+        self.sun_dir = skymod.sun_direction_from_position(self.sun_position,
+                                                          self.device)
+        self._last_pose = None
+        self.state = init_state(cfg, self.device)
+
+    def set_sun(self, sun_position):
+        if tuple(sun_position) != self.sun_position:
+            self.sun_position = tuple(sun_position)
+            self.sun_dir = skymod.sun_direction_from_position(
+                self.sun_position, self.device)
+            self.state = reset_accumulation(self.state)
+
+    def step(self, camera: Camera, n_steps: int = 1) -> RenderState:
+        pose = camera.pose_key()
+        if self._last_pose is not None and pose != self._last_pose:
+            self.state = reset_accumulation(self.state)
+        self._last_pose = pose
+        cam = camera.to_device(self.cfg, self.device)
+        for _ in range(n_steps):
+            self.state = render_step(self.state, self.scene, cam, self.sun_dir,
+                                     cfg=self.cfg, tables=self.tables,
+                                     sky_params=self.sky_params)
+        return self.state
+
+    def radiance(self) -> torch.Tensor:
+        """Linear HDR radiance mean [H, W, 3]."""
+        counts = torch.clamp(self.state.accum[:, 3:4], min=1e-8)
+        return (self.state.accum[:, :3] / counts).reshape(
+            self.cfg.height, self.cfg.width, 3)
+
+    def image(self) -> torch.Tensor:
+        """Tone-mapped display image [H, W, 3] in [0, 1]."""
+        return tonemap_image(self.radiance(), self.cfg.tonemap,
+                             self.cfg.exposure)
