@@ -2,11 +2,14 @@
 
 Builds the port's CUDA kernels from ``tyrant_tpu_torch/csrc``, holds each
 against its plain PyTorch version on the card (on synthetic rays and on
-the inputs the main path gives it), renders the main path at full size
-(1920x1080, 2,097,152-ray queue, 5 bounces, the seven spheres plus the
-~1M-triangle benchmark terrain) from the benchmark's three poses with a
-profiled per-stage device-time split, and compares a small render on the
-card with the same render on the CPU.
+the inputs the main path gives it: the extend queue, the shadow queue and
+the AOV pass's primaries), renders the main path at full size (1920x1080,
+2,097,152-ray queue, 5 bounces, the seven spheres plus the ~1M-triangle
+benchmark terrain) from the benchmark's three poses with a profiled
+per-stage device-time split, once with each traversal-kernel generation
+(``packet_kernel_mode`` "mono" and "wave"), drives the denoised display
+path (AOV pass, à-trous denoiser, bloom) at full size, and compares small
+renders on the card with the same renders on the CPU.
 
 Run from the root of the repository:
 
@@ -21,6 +24,7 @@ profiler traces of phase 3 are left in ``build/chip_smoke/``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -36,13 +40,15 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from tyrant_tpu_torch import render as tr  # noqa: E402
 from tyrant_tpu_torch.bench.poses import camera_for_pose, mrays_per_s  # noqa: E402
-from tyrant_tpu_torch.config import RenderConfig, small_config  # noqa: E402
+from tyrant_tpu_torch.config import (EPSILON, RenderConfig,  # noqa: E402
+                                     small_config)
+from tyrant_tpu_torch.denoise import atrous_denoise  # noqa: E402
 from tyrant_tpu_torch.ops import traverse as plain_trav  # noqa: E402
 from tyrant_tpu_torch.ops.intersect import intersect_spheres  # noqa: E402
 from tyrant_tpu_torch.ops.kernels import accum as kacc  # noqa: E402
 from tyrant_tpu_torch.ops.kernels import build  # noqa: E402
 from tyrant_tpu_torch.ops.kernels import traverse as ktrav  # noqa: E402
-from tyrant_tpu_torch.ops.tonemap import resolve  # noqa: E402
+from tyrant_tpu_torch.ops.tonemap import bloom, resolve  # noqa: E402
 from tyrant_tpu_torch.scene.procgen import benchmark_scene, terrain  # noqa: E402
 from tyrant_tpu_torch.scene.scene import Scene  # noqa: E402
 
@@ -50,6 +56,17 @@ DEV = torch.device("cuda")
 STAGES = ("raygen", "extend", "shade", "connect", "sort", "accumulate")
 TIE = 1e-3  # hit distances closer than EPSILON: either id is right
 TRACE_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
+GENERATIONS = (("mono", False), ("wave", True))
+
+# The card's peaks for the bound (NVIDIA's H100 SXM data sheet, at the
+# 700 W limit): HBM3 bytes/s and float32 operations/s outside the tensor
+# cores.  Operations a traversal needs, counted from the kernels' source:
+# a slab test is 6 subtractions, 6 multiplications, 4 max/min and 3
+# compares; a Möller-Trumbore test with its accept rule is 54 operations.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+SLAB_OPS, MT_OPS = 19, 54
+ROW_BYTES = 128 * 4
 
 
 def log(msg: str) -> None:
@@ -76,6 +93,26 @@ def cuda_ms(fn, reps: int) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def timed_once(fn):
+    """(fn(), device ms of that one call): for the plain walks, which run
+    once per queue."""
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """The least time the card could take: the larger of bytes over HBM
+    rate and operations over the float32 rate, and which one it is."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def phase0() -> float:
@@ -145,33 +182,43 @@ def bench_rays(bvh, n_rays: int, seed: int = 2024):
             .to(DEV), float((hi - lo).max()))
 
 
-def phase1(scene, tables, n_rays: int = 65_536) -> tuple[dict, dict]:
-    """Traversal kernel against the plain walk on bench.py's rays, with
-    origins on box planes (NaN slab distances)."""
+def phase1(scene, tables, n_rays: int = 65_536) -> dict:
+    """Both traversal kernels against the plain walk on bench.py's rays,
+    with origins on box planes (NaN slab distances).  Returns
+    {generation: {"closest": ..., "any": ...}}."""
     o, d, span = bench_rays(scene.bvh, n_rays)
-    t_k, id_k = ktrav.closest_hit_packets(o, d, tables)
     t_p, id_p = plain_trav.closest_hit(o, d, scene.bvh)
-    closest = check_closest("phase 1 closest", t_k, id_k, t_p, id_p)
-    if not closest["hits"]:
-        raise AssertionError("phase 1: no ray hit the mesh")
     # hits: half with the max distance past the hit (occluded), half short
     # of it (clear); misses: the scene's span
-    t_p, hits = t_p.cpu().numpy(), id_p.cpu().numpy() >= 0
+    t_np, hits = t_p.cpu().numpy(), id_p.cpu().numpy() >= 0
     past = np.arange(n_rays) % 2 == 0
-    maxd = torch.from_numpy(np.where(hits, np.where(past, t_p * 1.01 + 0.01,
-                                                    t_p * 0.99), span)
+    maxd = torch.from_numpy(np.where(hits, np.where(past, t_np * 1.01 + 0.01,
+                                                    t_np * 0.99), span)
                             .astype(np.float32)).to(DEV)
     active = torch.arange(n_rays, device=DEV) % 5 != 0
-    occ_k = ktrav.any_hit_packets(o, d, maxd, tables, active=active)
     occ_p = plain_trav.any_hit(o, d, maxd, scene.bvh, active=active)
-    anyhit = check_any("phase 1 any hit", occ_k, occ_p)
-    if not anyhit["occluded"]:
-        raise AssertionError("phase 1: no shadow ray was occluded")
-    return closest, anyhit
+    out, ids = {}, {}
+    for gen, wave in GENERATIONS:
+        t_k, ids[gen] = ktrav.closest_hit_packets(o, d, tables, wave=wave)
+        closest = check_closest(f"phase 1 {gen} closest", t_k, ids[gen],
+                                t_p, id_p)
+        if not closest["hits"]:
+            raise AssertionError("phase 1: no ray hit the mesh")
+        occ_k = ktrav.any_hit_packets(o, d, maxd, tables, active=active,
+                                      wave=wave)
+        anyhit = check_any(f"phase 1 {gen} any hit", occ_k, occ_p)
+        if not anyhit["occluded"]:
+            raise AssertionError("phase 1: no shadow ray was occluded")
+        out[gen] = dict(closest=closest, any=anyhit)
+    vs_mono = int((ids["wave"] != ids["mono"]).sum())
+    out["wave"]["closest"]["ties_vs_mono"] = vs_mono
+    log(f"phase 1 wave closest: {vs_mono} id ties against the mono kernel")
+    return out
 
 
-def phase2(p: int, n: int):
-    """Accumulation kernel against the plain version on CPU copies."""
+def phase2(p: int, n: int) -> dict:
+    """Accumulation kernel against the plain version on CPU copies, timed
+    beside the plain version and one index_add_ call."""
     r = np.random.default_rng(7)
     accum = r.random((p, 4)).astype(np.float32)
     pix = r.integers(0, p, n)
@@ -192,9 +239,16 @@ def phase2(p: int, n: int):
         raise AssertionError("rgb differs beyond rtol 1e-6")
     ms = cuda_ms(lambda: kacc.accumulate_sorted(acc_d, pix_d, vals_d), 20)
     plain_ms = cuda_ms(lambda: kacc.accumulate_plain(acc_d, pix_d, vals_d), 20)
-    log(f"phase 2 timing: kernel {ms:.4f} ms, plain (index_add_) "
-        f"{plain_ms:.4f} ms")
-    return err, ms, plain_ms
+    # the library call: one index_add_ into a buffer padded past the
+    # sentinel, so the skipped entries land outside the first P rows
+    acc_pad = torch.zeros((kacc.sentinel(p) + 1, 4), device=DEV)
+    library_ms = cuda_ms(lambda: acc_pad.index_add_(0, pix_d, vals_d), 20)
+    # each input read once, the buffer read and written once
+    bnd, by = bound_ms(2 * p * 16 + n * 4 + n * 16, n * 4)
+    log(f"phase 2 timing: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"index_add_ {library_ms:.4f} ms, bound {bnd:.4f} ms ({by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bnd, bound_by=by)
 
 
 def stage_split(trace_path: Path, steps: int) -> tuple[dict, float]:
@@ -224,18 +278,30 @@ def stage_split(trace_path: Path, steps: int) -> tuple[dict, float]:
             busy / 1e3 / steps)
 
 
+def reset_launches() -> None:
+    ktrav.launches = ktrav.launches_wave = kacc.launches = 0
+
+
+def read_launches() -> dict:
+    return {"traverse": ktrav.launches, "traverse_wave": ktrav.launches_wave,
+            "accumulate": kacc.launches}
+
+
 def phase3(ren):
-    """The main path at full size: for each pose 4 warm-up steps, 8 steps
-    timed with CUDA events, then 2 steps under the profiler for the
-    per-stage device-time split and the device's idle share."""
+    """The main path at full size, with the traversal generation that
+    ``ren.cfg.packet_kernel_mode`` selects: for each pose 4 warm-up steps,
+    8 steps timed with CUDA events, then 2 steps under the profiler for
+    the per-stage device-time split and the device's idle share."""
     cfg = ren.cfg
+    wave = tr._pick_wave(cfg, "extend")
+    tag = "wave" if wave else "mono"
     TRACE_DIR.mkdir(parents=True, exist_ok=True)
     # the profiler's first session sets up the device tracing; keep that
     # cost out of pose 0's window
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
         torch.ones(1, device=DEV).add_(1)
         torch.cuda.synchronize()
-    ktrav.launches = kacc.launches = 0
+    reset_launches()
     total_steps = 0
     poses = []
     for i in range(3):
@@ -260,7 +326,7 @@ def phase3(ren):
         ms = a.elapsed_time(b) / 8
         shadow_n = int(ren.state.shadow_rays) - shadow0
 
-        trace = TRACE_DIR / f"trace_pose{i}.json"
+        trace = TRACE_DIR / f"trace_{tag}_pose{i}.json"
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             a.record()
@@ -284,48 +350,117 @@ def phase3(ren):
             raise AssertionError(f"pose {i}: {counted} paths counted, "
                                  f"{int(ended)} ended")
         mr = mrays_per_s(cfg.num_rays, ms, shadow_n, 8)
-        poses.append(dict(pose=i, ms_per_step=ms, wall_ms_per_step=wall_ms,
+        poses.append(dict(pose=i, mode=tag, ms_per_step=ms,
+                          wall_ms_per_step=wall_ms,
                           mrays_per_s=mr, shadow_rays_per_step=shadow_n / 8,
                           paths_counted=int(counted),
                           profiled_ms_per_step=window_ms,
                           device_busy_ms_per_step=busy_ms, idle_share=idle,
                           device_split_ms=split))
-        log(f"phase 3 pose {i}: {ms:.3f} ms/step (host {wall_ms:.3f}), "
+        log(f"phase 3 {tag} pose {i}: {ms:.3f} ms/step (host {wall_ms:.3f}), "
             f"{mr:.3f} Mrays/s, {shadow_n / 8:.0f} shadow rays/step, "
             f"{int(counted)} paths counted = ended")
-        log(f"phase 3 pose {i} profiled: {window_ms:.3f} ms/step, device "
-            f"busy {busy_ms:.3f} ms (idle {idle:.3f}); device ms "
+        log(f"phase 3 {tag} pose {i} profiled: {window_ms:.3f} ms/step, "
+            f"device busy {busy_ms:.3f} ms (idle {idle:.3f}); device ms "
             + " ".join(f"{k} {v:.3f}" for k, v in split.items()))
-    launches = {"traverse": ktrav.launches, "accumulate": kacc.launches}
-    log(f"phase 3 launches over {total_steps} steps: {launches}")
-    if launches["traverse"] != 2 * total_steps \
-            or launches["accumulate"] != total_steps:
+    launches = read_launches()
+    log(f"phase 3 {tag} launches over {total_steps} steps: {launches}")
+    want = {"traverse": 0 if wave else 2 * total_steps,
+            "traverse_wave": 2 * total_steps if wave else 0,
+            "accumulate": total_steps}
+    if launches != want:
         raise AssertionError(f"main path did not run through the kernels: "
-                             f"{launches}")
+                             f"{launches}, expected {want}")
     return poses, launches
 
 
-def kernels_at_slice(ren):
-    """The traversal kernel against its plain version, compared and timed
-    on the inputs the main path gives it in pose 0's next step: the extend
-    queue seeded with the sphere pass's t, and the shadow queue that shade
-    makes from those hits."""
+def compare_in_step(mono: list, wave: list) -> None:
+    """The two generations' in-step numbers side by side, stage by stage."""
+    for m, w in zip(mono, wave):
+        cols = " ".join(f"{k} {m['device_split_ms'][k]:.3f}/"
+                        f"{w['device_split_ms'][k]:.3f}"
+                        for k in ("extend", "connect", "shade"))
+        log(f"in-step pose {m['pose']} mono/wave: ms/step "
+            f"{m['ms_per_step']:.3f}/{w['ms_per_step']:.3f}, device busy "
+            f"{m['device_busy_ms_per_step']:.3f}/"
+            f"{w['device_busy_ms_per_step']:.3f}, device ms {cols}")
+
+
+def check_queue(what: str, o, d, t, tables, bvh, closest: bool,
+                reps: int = 5) -> dict:
+    """Both traversal kernels against the plain walk on one queue of the
+    main path: checked with the tie rule (closest) or exactly (any hit),
+    timed with CUDA events, with the bound from the work the plain walk
+    counts on these rays (fat rows read, boxes and triangles tested).
+    The plain walk runs once.  A shadow ray whose max distance is at most
+    2 EPSILON cannot be occluded: the plain walk skips it, and the bound
+    reads its max distance and writes its flag but not its origin and
+    direction."""
+    stats = {}
+    n = o.shape[0]
+    if closest:
+        (t_p, id_p), plain_ms = timed_once(
+            lambda: plain_trav.closest_hit(o, d, bvh, t, stats=stats))
+        live = n
+    else:
+        walk = t > 2.0 * EPSILON
+        occ_p, plain_ms = timed_once(
+            lambda: plain_trav.any_hit(o, d, t, bvh, active=walk,
+                                       stats=stats))
+        live = int(walk.sum())
+    rows = int(stats["rows"].sum()) + int(not bool(stats["rows"][0]))
+    n_bytes = live * (3 + 3) * 4 + n * 4 + n * (8 if closest else 4) \
+        + rows * ROW_BYTES
+    n_ops = SLAB_OPS * stats["box_tests"] + MT_OPS * stats["tri_tests"]
+    bnd, by = bound_ms(n_bytes, n_ops)
+    out = dict(rays=n, live_rays=live, plain_ms=plain_ms, rows_read=rows,
+               box_tests=stats["box_tests"], tri_tests=stats["tri_tests"],
+               bytes=n_bytes, ops=n_ops, bound_ms=bnd, bound_by=by)
+    for gen, wave in GENERATIONS:
+        if closest:
+            def fn(wave=wave):
+                return ktrav.closest_hit_packets(o, d, tables, t, wave=wave)
+            t_k, id_k = fn()
+            res = check_closest(f"{what} {gen}", t_k, id_k, t_p, id_p)
+            out[f"{gen}_ids"] = id_k
+        else:
+            def fn(wave=wave):
+                return ktrav.any_hit_packets(o, d, t, tables, wave=wave)
+            res = check_any(f"{what} {gen}", fn(), occ_p)
+        out[gen] = dict(res, ms=cuda_ms(fn, reps))
+    if closest:
+        out["wave"]["ties_vs_mono"] = int(
+            (out.pop("wave_ids") != out.pop("mono_ids")).sum())
+    log(f"{what} ({n} rays, {live} walked): mono {out['mono']['ms']:.4f} "
+        f"ms, wave {out['wave']['ms']:.4f} ms, plain {plain_ms:.3f} ms; bound "
+        f"{bnd:.4f} ms ({by}: {rows} fat rows read, {n_bytes / 1e6:.1f} MB, "
+        f"{n_ops / 1e9:.3f} G operations)")
+    return out
+
+
+def kernels_at_slice(ren) -> dict:
+    """Both traversal kernels against the plain walk, compared and timed
+    on the inputs the main path gives them in pose 0's next step: the
+    extend queue seeded with the sphere pass's t, the shadow queue that
+    shade makes from those hits, and the AOV pass's pixel-centre
+    primaries with their sphere t."""
     cfg, sc = ren.cfg, ren.scene
     cam = camera_for_pose(0)
     ren.step(cam, 1)
-    rays = tr.merge_queue(cfg, ren.state, cam.to_device(cfg, DEV))
+    camd = cam.to_device(cfg, DEV)
+    rays = tr.merge_queue(cfg, ren.state, camd)
     o, d = rays["origin"], rays["direction"]
     t_sph, sph_id = intersect_spheres(o, d, sc.sphere_center, sc.sphere_radius)
-    t, tri_id = ktrav.closest_hit_packets(o, d, ren.tables, t_sph)
-    t_p, id_p = plain_trav.closest_hit(o, d, sc.bvh, t_sph)
-    closest = check_closest("slice extend closest", t, tri_id, t_p, id_p)
-    ms = cuda_ms(lambda: ktrav.closest_hit_packets(o, d, ren.tables, t_sph), 5)
-    plain_ms = cuda_ms(lambda: plain_trav.closest_hit(o, d, sc.bvh, t_sph), 1)
+    extend = check_queue("slice extend closest", o, d, t_sph, ren.tables,
+                         sc.bvh, closest=True)
     # the same rays without the sphere pass's t_init: how much the spheres
     # (the ground sphere above all) prune the BVH walk
-    unseeded_ms = cuda_ms(lambda: ktrav.closest_hit_packets(o, d, ren.tables),
-                          5)
+    unseeded = {gen: cuda_ms(lambda wave=wave: ktrav.closest_hit_packets(
+        o, d, ren.tables, wave=wave), 5) for gen, wave in GENERATIONS}
+    log(f"slice extend without the sphere t_init: mono "
+        f"{unseeded['mono']:.4f} ms, wave {unseeded['wave']:.4f} ms")
 
+    t, tri_id = ktrav.closest_hit_packets(o, d, ren.tables, t_sph)
     is_tri = tri_id >= 0
     _, _, _, shadow = tr._shade(
         cfg, sc, ren.sky_params, ren.sun_dir, rays, t,
@@ -334,34 +469,80 @@ def kernels_at_slice(ren):
     maxd = torch.where(valid, shadow["max_dist"],
                        torch.zeros_like(shadow["max_dist"]))
     so, sd = shadow["origin"].contiguous(), shadow["direction"].contiguous()
-    occ = ktrav.any_hit_packets(so, sd, maxd, ren.tables)
-    occ_p = plain_trav.any_hit(so, sd, maxd, sc.bvh)
-    anyhit = check_any("slice connect any hit", occ, occ_p)
-    any_ms = cuda_ms(lambda: ktrav.any_hit_packets(so, sd, maxd, ren.tables),
-                     5)
-    any_plain_ms = cuda_ms(lambda: plain_trav.any_hit(so, sd, maxd, sc.bvh),
-                           1)
-    log(f"traverse at the slice's shapes ({o.shape[0]} rays): closest kernel "
-        f"{ms:.3f} ms (without the sphere t_init {unseeded_ms:.3f} ms), plain "
-        f"{plain_ms:.3f} ms; any hit ({int(valid.sum())} valid) kernel "
-        f"{any_ms:.3f} ms, plain {any_plain_ms:.3f} ms")
-    return closest, anyhit, ms, plain_ms
+    connect = check_queue(f"slice connect any hit ({int(valid.sum())} valid)",
+                          so, sd, maxd, ren.tables, sc.bvh, closest=False)
+
+    ao, ad = tr.aov_primaries(camd, cfg)
+    a_sph, _ = intersect_spheres(ao, ad, sc.sphere_center, sc.sphere_radius)
+    aov = check_queue("slice AOV primaries closest", ao, ad, a_sph,
+                      ren.tables, sc.bvh, closest=True)
+    return dict(extend=dict(extend, unseeded_ms=unseeded), connect=connect,
+                aov=aov)
 
 
-def phase4() -> float:
-    """The card against the CPU at small size."""
-    cfg = small_config(width=64, height=64, num_rays=16_384)
+def display_path(scene, tables, cfg: RenderConfig, steps: int = 8) -> dict:
+    """The denoised display path with the wave kernel: ``steps`` steps at
+    pose 0, then ``image()`` (AOV pass, à-trous denoiser, bloom, tone
+    map), timed whole and by part with CUDA events."""
+    ren = tr.Renderer(scene, cfg, tables=tables)
+    cam = camera_for_pose(0)
+    reset_launches()
+    ren.step(cam, steps)
+    torch.cuda.synchronize()
+    stepped = read_launches()
+    img, image_ms = timed_once(ren.image)
+    launches = read_launches()
+    aov_launches = launches["traverse_wave"] - stepped["traverse_wave"]
+    log(f"display path launches: {steps} steps {stepped}, image() "
+        f"{aov_launches} wave launch(es)")
+    if stepped != {"traverse": 0, "traverse_wave": 2 * steps,
+                   "accumulate": steps} or aov_launches != 1 \
+            or launches["traverse"] != 0:
+        raise AssertionError(f"the display path did not run through the "
+                             f"kernels: {stepped} then {launches}")
+    if tuple(img.shape) != (cfg.height, cfg.width, 3) \
+            or not bool(torch.isfinite(img).all()) \
+            or float(img.min()) < 0.0 or float(img.max()) > 1.0:
+        raise AssertionError("the display image is not finite in [0, 1]")
+
+    aovs = ren.aovs()
+    mean = ren.radiance()
+    aov_ms = cuda_ms(lambda: tr.render_aovs(ren.scene, ren._last_cam, cfg,
+                                            ren.tables), 3)
+    dn_ms = cuda_ms(lambda: atrous_denoise(
+        mean, aovs["albedo"], aovs["normal"], aovs["depth"],
+        iterations=cfg.denoise_iterations), 3)
+    bloom_ms = cuda_ms(lambda: bloom(mean, cfg.bloom_strength,
+                                     cfg.bloom_threshold, cfg.bloom_radius), 3)
+    plain = ren.image(denoise=False)
+    changed = float((img - plain).abs().mean())
+    log(f"display path {cfg.width}x{cfg.height}: image() {image_ms:.3f} ms "
+        f"(AOV pass {aov_ms:.3f} ms, denoiser {dn_ms:.3f} ms, bloom "
+        f"{bloom_ms:.3f} ms); mean |denoised - raw| {changed:.4f}")
+    return dict(image_ms=image_ms, aov_ms=aov_ms, denoise_ms=dn_ms,
+                bloom_ms=bloom_ms, launches=launches,
+                mean_change=changed)
+
+
+def phase4(denoise_wave: bool = False) -> float:
+    """The card against the CPU at small size: the accumulation's
+    resolve, or with ``denoise_wave`` the denoised display image rendered
+    with the wave kernel on the card."""
+    kw = dict(denoise="on", packet_kernel_mode="wave") if denoise_wave else {}
+    cfg = small_config(width=64, height=64, num_rays=16_384, **kw)
     v0, v1, v2 = terrain(n_quads=48, towers=4)
     imgs = []
     for dev in ("cuda", "cpu"):
         ren = tr.Renderer(Scene.from_triangles(v0, v1, v2), cfg, device=dev)
         ren.step(camera_for_pose(0), 6)
-        imgs.append(resolve(ren.state.accum.cpu(), cfg.width, cfg.height))
+        imgs.append(ren.image().cpu() if denoise_wave
+                    else resolve(ren.state.accum.cpu(), cfg.width, cfg.height))
         if dev == "cuda":
             counts = ren.state.accum[:, 3].sum().item()
     mad = float((imgs[0] - imgs[1]).abs().mean())
-    log(f"phase 4 card vs cpu at 64x64/16384 rays/6 steps: mean |diff| "
-        f"{mad:.3g} ({counts:.0f} paths on the card)")
+    what = "denoised image() with wave" if denoise_wave else "resolve"
+    log(f"phase 4 card vs cpu at 64x64/16384 rays/6 steps, {what}: mean "
+        f"|diff| {mad:.3g} ({counts:.0f} paths on the card)")
     if not mad < 0.03:
         raise AssertionError(f"card and CPU renders differ: {mad}")
     return mad
@@ -379,35 +560,67 @@ def main() -> int:
     v0, v1, v2 = benchmark_scene(1_048_576)
     scene_host = Scene.from_triangles(v0, v1, v2)
     cfg = RenderConfig()
-    ren = tr.Renderer(scene_host, cfg, device="cuda")
+    ren = tr.Renderer(scene_host, cfg)
     log(f"scene: {scene_host.stats['triangles']} triangles, "
         f"{ren.scene.bvh.n_nodes} nodes, {ren.tables.rows.shape[0]} fat rows, "
         f"max depth {ren.tables.max_depth}, built+uploaded in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    p1_closest, p1_any = phase1(ren.scene, ren.tables)
-    acc_err, acc_ms, acc_plain_ms = phase2(cfg.num_pixels, cfg.num_rays)
+    p1 = phase1(ren.scene, ren.tables)
+    acc = phase2(cfg.num_pixels, cfg.num_rays)
     poses, launches = phase3(ren)
-    sl_closest, sl_any, trav_ms, trav_plain_ms = kernels_at_slice(ren)
-    phase4()
+    ren_w = tr.Renderer(ren.scene, dataclasses.replace(
+        cfg, packet_kernel_mode="wave"), tables=ren.tables)
+    poses_w, launches_w = phase3(ren_w)
+    compare_in_step(poses, poses_w)
+    del ren_w
+    sl = kernels_at_slice(ren)
+    disp = display_path(ren.scene, ren.tables, dataclasses.replace(
+        cfg, denoise="on", bloom_strength=0.1, packet_kernel_mode="wave"))
+    mad = phase4()
+    mad_dn = phase4(denoise_wave=True)
 
-    checks = [p1_closest, p1_any, sl_closest, sl_any]
+    queues = ("extend", "connect", "aov")
+
+    def gen_checks(gen):
+        return [p1[gen]["closest"], p1[gen]["any"]] \
+            + [sl[q][gen] for q in queues]
+
+    def entry(gen):
+        checks = gen_checks(gen)
+        closest = [p1[gen]["closest"], sl["extend"][gen], sl["aov"][gen]]
+        return dict(max_abs_err=max(c["max_dt"] for c in closest),
+                    mismatches=sum(c["mismatches"] for c in checks),
+                    ties=sum(c["ties"] for c in closest),
+                    rays_checked=sum(c["rays"] for c in checks),
+                    ms=sl["extend"][gen]["ms"],
+                    plain_ms=sl["extend"]["plain_ms"],
+                    bound_ms=sl["extend"]["bound_ms"],
+                    bound_by=sl["extend"]["bound_by"], library_ms=None)
+
     result = {"kernels": [
         {"name": "traverse", "route": "cuda",
          "source": "tyrant_tpu_torch/csrc/traverse.cu",
          "replaces": "tyrant_tpu/ops/pallas/traverse_kernel.py:164",
-         "launches": launches["traverse"],
-         "max_abs_err": max(p1_closest["max_dt"], sl_closest["max_dt"]),
-         "mismatches": sum(c["mismatches"] for c in checks),
-         "ties": p1_closest["ties"] + sl_closest["ties"],
-         "rays_checked": sum(c["rays"] for c in checks),
-         "ms": trav_ms, "plain_ms": trav_plain_ms},
+         "launches": launches["traverse"], **entry("mono")},
+        {"name": "traverse_wave", "route": "cuda",
+         "source": "tyrant_tpu_torch/csrc/traverse_wave.cu",
+         "replaces": "tyrant_tpu/ops/pallas/traverse_kernel.py:646",
+         "launches": launches_w["traverse_wave"],
+         "display_launches": disp["launches"]["traverse_wave"],
+         **entry("wave")},
         {"name": "accumulate", "route": "cuda",
          "source": "tyrant_tpu_torch/csrc/accum.cu",
          "replaces": "tyrant_tpu/ops/pallas/accum_kernel.py:50",
-         "launches": launches["accumulate"], "max_abs_err": acc_err,
-         "ms": acc_ms, "plain_ms": acc_plain_ms}]}
-    log(json.dumps({"poses": poses, "build_s": build_s}))
+         "launches": launches["accumulate"], "max_abs_err": acc["max_abs_err"],
+         "ms": acc["ms"], "plain_ms": acc["plain_ms"],
+         "bound_ms": acc["bound_ms"], "bound_by": acc["bound_by"],
+         "library_ms": acc["library_ms"]}]}
+    log(json.dumps({"poses": poses, "poses_wave": poses_w,
+                    "queues": {q: {k: v for k, v in sl[q].items()}
+                               for q in queues},
+                    "phase1": p1, "display": disp, "card_vs_cpu": mad,
+                    "card_vs_cpu_denoised_wave": mad_dn, "build_s": build_s}))
     log(gpu)
     log(json.dumps(result))
     log(json.dumps({"ok": True, "device": {

@@ -1,46 +1,69 @@
-"""The PyTorch port imports without JAX and builds nothing at import."""
+"""The PyTorch port stands alone: it imports neither JAX nor anything of the
+JAX package, builds nothing at import, and runs on the card by default."""
 
 import ast
 import os
+import pkgutil
 import subprocess
 import sys
+from pathlib import Path
 
 import pytest
 import torch
 
-_ROOT = __file__.rsplit("/tests/", 1)[0]
+_ROOT = Path(__file__).resolve().parents[1]
 
-_MODULES = ["tyrant_tpu_torch", "tyrant_tpu_torch.render",
-            "tyrant_tpu_torch.interop", "tyrant_tpu_torch.bench.poses",
-            "tyrant_tpu_torch.config", "tyrant_tpu_torch.scene.procgen",
-            "chip_smoke",
-            "tyrant_tpu_torch.ops.kernels.traverse",
-            "tyrant_tpu_torch.ops.kernels.accum",
-            "tyrant_tpu_torch.ops.tonemap", "tyrant_tpu_torch.sky"]
+
+def _port_modules():
+    import tyrant_tpu_torch
+    return ["tyrant_tpu_torch"] + [
+        m.name for m in pkgutil.walk_packages(tyrant_tpu_torch.__path__,
+                                              "tyrant_tpu_torch.")]
+
+
+def test_module_list_covers_the_package():
+    files = {p.relative_to(_ROOT).with_suffix("").as_posix().replace("/", ".")
+             for p in (_ROOT / "tyrant_tpu_torch").rglob("*.py")}
+    files = {f[:-len(".__init__")] if f.endswith(".__init__") else f
+             for f in files}
+    assert files == set(_port_modules())
 
 
 def test_import_leaves_jax_out():
     code = ("import sys\n"
-            + "".join(f"import {m}\n" for m in _MODULES)
-            + "bad = sorted(m for m in sys.modules if m == 'jax' "
-              "or m.startswith('jax.') or m == 'triton')\n"
+            + "".join(f"import {m}\n" for m in _port_modules() + ["chip_smoke"])
+            + "bad = sorted(m for m in sys.modules if m in ('jax', 'triton', "
+              "'tyrant_tpu') or m.startswith(('jax.', 'tyrant_tpu.')))\n"
               "assert not bad, bad\n"
               "import tyrant_tpu_torch.ops.kernels.build as b\n"
-              "assert b._lib is None\n")
+              "import tyrant_tpu_torch.native as nat\n"
+              "assert b._lib is None and nat._lib is None\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=_ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
 
 
-def test_chip_smoke_imports_only_the_port():
-    with open(f"{_ROOT}/chip_smoke.py") as f:
-        tree = ast.parse(f.read())
+def _imported_roots(path: Path) -> list[str]:
+    tree = ast.parse(path.read_text())
     names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
              for a in n.names]
     names += [n.module for n in ast.walk(tree)
-              if isinstance(n, ast.ImportFrom)]
-    bad = [m for m in names if m.split(".")[0] in ("jax", "tyrant_tpu")]
+              if isinstance(n, ast.ImportFrom) and n.level == 0]
+    return [m.split(".")[0] for m in names]
+
+
+def test_no_source_imports_jax_or_the_jax_package():
+    paths = sorted((_ROOT / "tyrant_tpu_torch").rglob("*.py"))
+    paths.append(_ROOT / "chip_smoke.py")
+    bad = {str(p.relative_to(_ROOT)): m for p in paths
+           for m in _imported_roots(p) if m in ("jax", "tyrant_tpu")}
     assert not bad, bad
+
+
+def test_chip_smoke_imports_only_the_port():
+    roots = _imported_roots(_ROOT / "chip_smoke.py")
+    assert "tyrant_tpu_torch" in roots
+    assert not {"jax", "tyrant_tpu"} & set(roots)
     # without a card it fails before printing any result
     proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=_ROOT,
                           capture_output=True, text=True, timeout=120,
@@ -50,10 +73,14 @@ def test_chip_smoke_imports_only_the_port():
 
 
 def test_renderer_refuses_missing_cuda(monkeypatch):
-    from tyrant_tpu.config import small_config
+    from tyrant_tpu_torch.config import small_config
     from tyrant_tpu_torch.render import Renderer
     from tyrant_tpu_torch.scene.scene import Scene
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = small_config(16, 16, 1024)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        Renderer(Scene.load(None), small_config(16, 16, 1024), device="cuda")
+        Renderer(Scene.load(None), cfg, device="cuda")
+    # the card is the default: no device means CUDA, and no CPU fallback
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Renderer(Scene.load(None), cfg)

@@ -125,7 +125,7 @@ def test_terrain_matches_jax_renderer():
     ("light_sampling", "power"), ("projection", "fisheye"),
     ("motion_blur", 0.5), ("crop", (0, 0, 8, 8)), ("bokeh_blades", 6),
     ("dispersion", 0.02), ("radiance_clamp", 4.0), ("seed", 3),
-    ("denoise", "on"), ("bloom_strength", 0.1)])
+    ("texture_filter", "nearest"), ("fisheye_fov_degrees", 120.0)])
 def test_unported_config_fields_raise(field, value):
     cfg = dataclasses.replace(small_config(16, 16, 1024), **{field: value})
     with pytest.raises(ValueError, match=field):
@@ -150,10 +150,33 @@ def test_pose_and_sun_changes_reset_accumulation():
     assert 0 < float(r.state.accum[:, 3].sum()) <= cfg.num_rays
 
 
+def test_packet_kernel_modes_render_alike():
+    """CPU tensors take the plain walk whatever the traversal generation,
+    so every mode renders the same accumulation."""
+    accums = []
+    for mode in ("mono", "wave", "auto"):
+        cfg = small_config(16, 16, 1024, packet_kernel_mode=mode)
+        r = tr.Renderer(Scene.from_triangles(*_terrain(), builder="numpy"),
+                        cfg, device="cpu", sun_position=SUN)
+        r.step(_pose(Camera), 3)
+        accums.append(r.state.accum)
+    assert accums[0][:, 3].sum() > 0
+    for a in accums[1:]:
+        assert torch.equal(a, accums[0])
+
+
+@pytest.mark.parametrize("mode", ["auto", "mono", "wave", "wave-unsafe"])
+def test_pick_wave_per_stage(mode):
+    """"wave" and its old spelling take the wave kernel in every stage;
+    "mono" and "auto" the per-thread kernel."""
+    cfg = small_config(16, 16, 1024, packet_kernel_mode=mode)
+    for stage in ("extend", "connect", "aov"):
+        assert tr._pick_wave(cfg, stage) == mode.startswith("wave")
+
+
 def test_tpu_selectors_are_accepted():
     cfg = small_config(16, 16, 1024, use_packet_kernel="on",
-                       use_accum_kernel="off", packet_kernel_mode="wave",
-                       adaptive_connect="auto", fuse_step_chains="on",
-                       use_kernel_normals="on")
+                       use_accum_kernel="off", adaptive_connect="auto",
+                       fuse_step_chains="on", use_kernel_normals="on")
     tr.Renderer(Scene.load(None), cfg, device="cpu")
     tr.check_config(RenderConfig())

@@ -1,13 +1,21 @@
-"""The port's host packer against the JAX package's: every table the
-render step reads must be equal bit for bit."""
+"""The port's host packer, BVH builders and procedural meshes against the
+JAX package's: every table the render step reads, every BVH array and
+every generated vertex must be equal bit for bit.  The port's native
+builder is held against its numpy builder as the JAX package holds its
+own (tests/test_native.py): integer arrays exact, bounds at rtol 1e-6."""
 
 import numpy as np
 import pytest
 
 from tyrant_tpu.ops.pallas.traverse_kernel import PacketTables as JPacketTables
+from tyrant_tpu.scene import bvh as jbvh
+from tyrant_tpu.scene import procgen as jprocgen
 from tyrant_tpu.scene.procgen import terrain
 from tyrant_tpu.scene.scene import Scene as JScene
 from tyrant_tpu_torch import interop
+from tyrant_tpu_torch.native import bvh_native
+from tyrant_tpu_torch.scene import bvh as tbvh
+from tyrant_tpu_torch.scene import procgen as tprocgen
 from tyrant_tpu_torch.ops.kernels.traverse import PacketTables
 from tyrant_tpu_torch.scene.scene import Scene, Spheres
 
@@ -19,6 +27,86 @@ _SCENE = ("tri_shade", "sphere_table", "sphere_center", "sphere_radius",
 def _bits(a):
     a = np.ascontiguousarray(a)
     return a.view(np.uint32) if a.dtype == np.float32 else a
+
+
+def _soup(n, seed):
+    """n random triangles: scattered vertices, small random edges."""
+    r = np.random.default_rng(seed)
+    v0 = r.uniform(-50, 50, (n, 3)).astype(np.float32)
+    v1 = v0 + r.normal(0, 2, (n, 3)).astype(np.float32)
+    v2 = v0 + r.normal(0, 2, (n, 3)).astype(np.float32)
+    return v0, v1, v2
+
+
+def _bounds(v0, v1, v2):
+    return (np.minimum(np.minimum(v0, v1), v2),
+            np.maximum(np.maximum(v0, v1), v2))
+
+
+_BVH_ARRAYS = ("lo", "hi", "meta", "second_child", "hit_link", "miss_link",
+               "perm")
+
+
+def _mesh(case):
+    if case == "terrain":
+        return terrain(n_quads=24, towers=3)
+    return _soup(int(case.split("-")[1]), seed=5)
+
+
+@pytest.mark.parametrize("case", ["terrain", "soup-1", "soup-17", "soup-3000"])
+@pytest.mark.parametrize("method", ["sah", "equal_counts"])
+def test_numpy_bvh_equals_jax_bitwise(case, method):
+    lo, hi = _bounds(*_mesh(case))
+    a = jbvh.build_bvh(lo, hi, method=method)
+    b = tbvh.build_bvh(lo, hi, method=method)
+    assert a.n_nodes == b.n_nodes
+    for k in _BVH_ARRAYS:
+        np.testing.assert_array_equal(_bits(getattr(b, k)),
+                                      _bits(getattr(a, k)), k)
+    assert tbvh.bvh_stats(b) == jbvh.bvh_stats(a)
+
+
+@pytest.mark.parametrize("case", ["terrain", "soup-1", "soup-17", "soup-3000"])
+def test_native_bvh_equals_numpy(case):
+    lo, hi = _bounds(*_mesh(case))
+    a = tbvh.build_bvh(lo, hi)
+    b = bvh_native.build_bvh(lo, hi)
+    assert a.n_nodes == b.n_nodes
+    for k in ("meta", "second_child", "hit_link", "miss_link", "perm"):
+        np.testing.assert_array_equal(getattr(b, k), getattr(a, k), k)
+    np.testing.assert_allclose(b.lo, a.lo, rtol=1e-6)
+    np.testing.assert_allclose(b.hi, a.hi, rtol=1e-6)
+
+
+def test_native_library_builds_outside_the_jax_package():
+    from tyrant_tpu_torch import native
+    path = native.library_path()
+    assert path.parent == native.BUILD_DIR
+    assert path.parts[-3:-1] == ("build", "tyrant_tpu_torch")
+    assert "tyrant_tpu" not in path.relative_to(native.BUILD_DIR.parents[1]) \
+        .parts[1:]
+
+
+@pytest.mark.parametrize("builder", ["auto", "native", "numpy"])
+def test_scene_builders_agree(builder):
+    v0, v1, v2 = terrain(n_quads=16, towers=2)
+    ref = Scene.from_triangles(v0, v1, v2, builder="numpy").bvh
+    got = Scene.from_triangles(v0, v1, v2, builder=builder).bvh
+    for k in ("meta", "second_child", "miss_link", "perm"):
+        np.testing.assert_array_equal(getattr(got, k), getattr(ref, k), k)
+
+
+@pytest.mark.parametrize("fn,kw", [
+    ("terrain", {}), ("terrain", dict(n_quads=20, towers=5, seed=3)),
+    ("terrain", dict(n_quads=9, towers=0, rng_seed=11, height=10.0)),
+    ("benchmark_scene", dict(n_tris_target=5000)),
+    ("benchmark_scene", dict(n_tris_target=20_000, seed=2))])
+def test_procgen_equals_jax(fn, kw):
+    got = getattr(tprocgen, fn)(**kw)
+    want = getattr(jprocgen, fn)(**kw)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == np.float32
+        np.testing.assert_array_equal(_bits(g), _bits(w))
 
 
 def _scenes(case):

@@ -1,7 +1,8 @@
 """The port's plain traversal against the JAX package: the XLA threaded
-walk (same algorithm: ids and flags exact) and the Pallas packet kernel in
-interpret mode (a different visiting order: ids exact except epsilon
-ties). """
+walk (same algorithm: ids and flags exact) and the Pallas packet kernel of
+both generations, mono and wave, in interpret mode (a different visiting
+order: ids exact except epsilon ties with |dt| <= 1e-3, t within rtol
+1e-4 on hits, any-hit flags exact)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -82,15 +83,16 @@ def test_any_hit_matches_xla_walk():
     np.testing.assert_array_equal(occ.numpy(), occ_ref)
 
 
-def test_matches_pallas_packet_kernel_interpret():
+@pytest.mark.parametrize("wave", [False, True])
+def test_matches_pallas_packet_kernel_interpret(wave):
     jd, td, o, d = _setup(seed=11)
     jt = JPacketTables(jd.bvh)
     tables = ktrav.PacketTables(td.bvh)
     t_pk, id_pk = (np.asarray(x) for x in j_closest_pk(
-        jnp.asarray(o), jnp.asarray(d), jt, interpret=True))
-    # the CPU wrapper runs the plain version
+        jnp.asarray(o), jnp.asarray(d), jt, interpret=True, wave=wave))
+    # the CPU wrapper runs the plain version, whatever the generation
     t, ids = ktrav.closest_hit_packets(torch.from_numpy(o),
-                                       torch.from_numpy(d), tables)
+                                       torch.from_numpy(d), tables, wave=wave)
     t, ids = t.numpy(), ids.numpy()
     tie = np.abs(t - t_pk) <= 1e-3
     assert ((ids == id_pk) | tie).all()
@@ -99,11 +101,13 @@ def test_matches_pallas_packet_kernel_interpret():
     np.testing.assert_allclose(t[hits], t_pk[hits], rtol=1e-4)
     maxd = np.where(hits, t_pk * 0.999, 300.0).astype(np.float32)
     occ_pk = np.asarray(j_any_pk(jnp.asarray(o), jnp.asarray(d),
-                                 jnp.asarray(maxd), jt, interpret=True))
+                                 jnp.asarray(maxd), jt, interpret=True,
+                                 wave=wave))
     occ = ktrav.any_hit_packets(torch.from_numpy(o), torch.from_numpy(d),
-                                torch.from_numpy(maxd), tables)
+                                torch.from_numpy(maxd), tables, wave=wave)
     np.testing.assert_array_equal(occ.numpy(), occ_pk)
-    assert ktrav.launches == 0  # CPU tensors never reach the kernel
+    # CPU tensors never reach a kernel
+    assert ktrav.launches == ktrav.launches_wave == 0
 
 
 def test_unsupported_table_raises():
@@ -118,7 +122,7 @@ def test_unsupported_table_raises():
     with pytest.raises(ValueError, match="unsupported"):
         ktrav.closest_hit_packets(torch.from_numpy(o), torch.from_numpy(d),
                                   tables)
-    from tyrant_tpu.config import small_config
+    from tyrant_tpu_torch.config import small_config
     from tyrant_tpu_torch.render import Renderer
     with pytest.raises(ValueError, match="unsupported"):
         Renderer(td, small_config(16, 16, 1024), device="cpu", tables=tables)
@@ -134,3 +138,24 @@ def test_wrapper_rejects_bad_inputs():
         ktrav.closest_hit_packets(torch.from_numpy(o).t().contiguous().t(),
                                   torch.from_numpy(d), tables)
 
+
+
+def test_walk_counts_the_work_it_needs():
+    """stats= counts what the bound is computed from: each live ray tests
+    at least the root box, the rows read include the root, the counts are
+    the same for closest and any hit on rays that miss everything, and
+    dead shadow rays need nothing."""
+    _, td, o, d = _setup(seed=13)
+    o, d = torch.from_numpy(o), torch.from_numpy(d)
+    n = o.shape[0]
+    stats = {}
+    plain.closest_hit(o, d, td.bvh, stats=stats)
+    assert stats["box_tests"] >= n and stats["tri_tests"] > 0
+    rows = stats["rows"]
+    assert rows.dtype == torch.bool and rows.shape == (td.bvh.n_nodes,)
+    assert bool(rows[0]) and 1 < int(rows.sum()) < td.bvh.n_nodes
+    dead = {}
+    plain.any_hit(o, d, torch.zeros(n), td.bvh,
+                  active=torch.zeros(n, dtype=torch.bool), stats=dead)
+    assert dead["box_tests"] == dead["tri_tests"] == 0
+    assert not bool(dead["rows"].any())

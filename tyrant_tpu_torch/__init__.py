@@ -1,14 +1,17 @@
 """tyrant_tpu_torch — the wavefront path tracer of ``tyrant_tpu`` in
 PyTorch, with hand-written CUDA kernels for NVIDIA Hopper.
 
-The JAX package ``tyrant_tpu`` is the reference.  This package imports its
+The JAX package ``tyrant_tpu`` is the reference.  This package imports
+nothing of it and never imports ``jax``: it keeps its own copies of the
 framework-free host modules (``config``, ``scene.bvh``, ``scene.procgen``,
-``native``) and ports the rest.  It never imports ``jax``.
+``native``) and ports the rest.
 
 Device rule: every function takes its device from its tensors (or from an
-explicit ``device`` argument).  CUDA tensors go through the hand-written
-kernels in :mod:`tyrant_tpu_torch.ops.kernels`; CPU tensors go through
-their plain PyTorch versions.  Nothing picks a device on its own.
+explicit ``device`` argument, "cuda" by default where a public entry point
+takes one).  CUDA tensors go through the hand-written kernels in
+:mod:`tyrant_tpu_torch.ops.kernels`; CPU tensors go through their plain
+PyTorch versions.  Without a CUDA device, "cuda" raises; nothing falls
+back to the CPU.
 """
 
 from .device import require_cuda  # noqa: F401

@@ -11,7 +11,7 @@ import math
 import numpy as np
 import torch
 
-from tyrant_tpu.config import RenderConfig
+from .config import RenderConfig
 
 
 @dataclasses.dataclass

@@ -18,79 +18,36 @@
 // ray needs, near child first by the row's split axis and the ray's own
 // direction sign.  Latency is hidden by occupancy: many rays in flight per
 // SM, each with an independent chain of row reads through the read-only
-// cache.  Warp-cooperative packets (the counterpart of the wave kernel)
-// and treelet staging in shared memory are later work.
+// cache.  Warp-cooperative packets, the counterpart of the wave kernel,
+// are traverse_wave.cu; treelet staging in shared memory is later work.
 //
 // Semantics follow the Pallas kernel: closest accepts t > EPS and
 // (t_best - t) > EPS slot by slot; any hit accepts (max_dist - t) > EPS and
 // stops at the first one; rays with max_dist <= 2 EPS are done at once;
 // back faces are culled by det >= 1e-7.  Slab distances are (b - o) * inv
-// with inv = 1/d (inf for a zero component).  An origin on a slab plane
-// gives 0 * inf = NaN there; max and min below propagate NaN like
-// jnp.maximum / torch.maximum (fmaxf would drop it), so such a box is
-// missed exactly as in the plain version.  Built with --fmad=false so
-// a*b+c rounds as two operations, as in eager PyTorch.
-#include <cuda_runtime.h>
-#include <stdint.h>
+// with inv = 1/d (inf for a zero component); the NaN-propagating max and
+// min, the slab test and Möller-Trumbore are in traverse_common.cuh, shared
+// with the wave kernel.  Built with --fmad=false so a*b+c rounds as two
+// operations, as in eager PyTorch.
+#include "traverse_common.cuh"
 
 namespace {
 
-constexpr int STACK_DEPTH = 128;
-constexpr int ROW = 128;
-constexpr int LEAF_WIDTH = 6;
-constexpr int L_TAG = 12, R_TAG = 13, L_REF = 14, R_REF = 15, AXIS = 16;
-constexpr int L_TRI = 17, R_TRI = L_TRI + 9 * LEAF_WIDTH;
-constexpr float EPS = 1e-3f;
+using namespace tyrant;
 
-__device__ __forceinline__ float max_nan(float a, float b) {
-  return (a != a) ? a : ((a > b) ? a : b);
+// Child box test on a row in global memory; box = lo.xyz, hi.xyz.
+__device__ __forceinline__ bool slab_ldg(const float* __restrict__ box,
+                                         const Ray& r, float prune) {
+  return slab(__ldg(box + 0), __ldg(box + 1), __ldg(box + 2), __ldg(box + 3),
+              __ldg(box + 4), __ldg(box + 5), r, prune);
 }
 
-__device__ __forceinline__ float min_nan(float a, float b) {
-  return (a != a) ? a : ((a < b) ? a : b);
-}
-
-struct Ray {
-  float ox, oy, oz, dx, dy, dz, ix, iy, iz;
-  bool nx, ny, nz;
-};
-
-// Child box test; box = lo.xyz, hi.xyz.
-__device__ __forceinline__ bool slab(const float* __restrict__ box,
-                                     const Ray& r, float prune) {
-  const float lox = __ldg(box + 0), loy = __ldg(box + 1), loz = __ldg(box + 2);
-  const float hix = __ldg(box + 3), hiy = __ldg(box + 4), hiz = __ldg(box + 5);
-  const float n_x = r.nx ? hix : lox, f_x = r.nx ? lox : hix;
-  const float n_y = r.ny ? hiy : loy, f_y = r.ny ? loy : hiy;
-  const float n_z = r.nz ? hiz : loz, f_z = r.nz ? loz : hiz;
-  const float tmin = max_nan(max_nan((n_x - r.ox) * r.ix, (n_y - r.oy) * r.iy),
-                             (n_z - r.oz) * r.iz);
-  const float tmax = min_nan(min_nan((f_x - r.ox) * r.ix, (f_y - r.oy) * r.iy),
-                             (f_z - r.oz) * r.iz);
-  return (tmin <= tmax) && (tmin < prune) && (tmax > 0.0f);
-}
-
-// Möller-Trumbore against one packed triangle (v0, e1, e2); 0 on a miss.
-__device__ __forceinline__ float moller_trumbore(const float* __restrict__ tri,
-                                                 const Ray& r) {
-  const float v0x = __ldg(tri + 0), v0y = __ldg(tri + 1), v0z = __ldg(tri + 2);
-  const float e1x = __ldg(tri + 3), e1y = __ldg(tri + 4), e1z = __ldg(tri + 5);
-  const float e2x = __ldg(tri + 6), e2y = __ldg(tri + 7), e2z = __ldg(tri + 8);
-  const float px = r.dy * e2z - r.dz * e2y;
-  const float py = r.dz * e2x - r.dx * e2z;
-  const float pz = r.dx * e2y - r.dy * e2x;
-  const float det = e1x * px + e1y * py + e1z * pz;
-  const float inv_det = 1.0f / (fabsf(det) < 1e-30f ? 1.0f : det);
-  const float tx = r.ox - v0x, ty = r.oy - v0y, tz = r.oz - v0z;
-  const float u = (tx * px + ty * py + tz * pz) * inv_det;
-  const float qx = ty * e1z - tz * e1y;
-  const float qy = tz * e1x - tx * e1z;
-  const float qz = tx * e1y - ty * e1x;
-  const float v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
-  const float t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
-  const bool valid = (det >= 1e-7f) && (u >= 0.0f) && (u <= 1.0f) &&
-                     (v >= 0.0f) && (u + v <= 1.0f);
-  return valid ? t : 0.0f;
+// Möller-Trumbore against one packed triangle in global memory.
+__device__ __forceinline__ float mt_ldg(const float* __restrict__ tri,
+                                        const Ray& r) {
+  return moller_trumbore(__ldg(tri + 0), __ldg(tri + 1), __ldg(tri + 2),
+                         __ldg(tri + 3), __ldg(tri + 4), __ldg(tri + 5),
+                         __ldg(tri + 6), __ldg(tri + 7), __ldg(tri + 8), r);
 }
 
 // One leaf child: `tag` triangles starting at global prim offset `ref`.
@@ -101,7 +58,7 @@ __device__ __forceinline__ void leaf(const float* __restrict__ tris, int tag,
                                      float& t_best, int& hit) {
   for (int j = 0; j < LEAF_WIDTH; ++j) {
     if (j >= tag) break;
-    const float t = moller_trumbore(tris + 9 * j, r);
+    const float t = mt_ldg(tris + 9 * j, r);
     if (CLOSEST) {
       if (t > EPS && (t_best - t) > EPS) {
         t_best = t;
@@ -123,19 +80,9 @@ traverse_kernel(const float* __restrict__ rows, int n_rows,
                 int* __restrict__ hit_out, int n) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  Ray r;
-  r.ox = origin[3 * i + 0];
-  r.oy = origin[3 * i + 1];
-  r.oz = origin[3 * i + 2];
-  r.dx = direction[3 * i + 0];
-  r.dy = direction[3 * i + 1];
-  r.dz = direction[3 * i + 2];
-  r.ix = 1.0f / r.dx;
-  r.iy = 1.0f / r.dy;
-  r.iz = 1.0f / r.dz;
-  r.nx = r.dx < 0.0f;
-  r.ny = r.dy < 0.0f;
-  r.nz = r.dz < 0.0f;
+  const Ray r = make_ray(origin[3 * i + 0], origin[3 * i + 1],
+                         origin[3 * i + 2], direction[3 * i + 0],
+                         direction[3 * i + 1], direction[3 * i + 2]);
   const float limit = t_init[i];
   float t_best = limit;
   int hit = CLOSEST ? -1 : 0;
@@ -149,8 +96,8 @@ traverse_kernel(const float* __restrict__ rows, int n_rows,
       if (row_id < 0 || row_id >= n_rows) continue;  // never for a valid table
       const float* __restrict__ row = rows + (size_t)row_id * ROW;
       const float prune = CLOSEST ? t_best : limit;
-      const bool box_l = slab(row + 0, r, prune);
-      const bool box_r = slab(row + 6, r, prune);
+      const bool box_l = slab_ldg(row + 0, r, prune);
+      const bool box_r = slab_ldg(row + 6, r, prune);
       const int tag_l = (int)__ldg(row + L_TAG);
       const int tag_r = (int)__ldg(row + R_TAG);
       const int ref_l = (int)__ldg(row + L_REF);

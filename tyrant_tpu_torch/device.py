@@ -1,5 +1,6 @@
-"""Device helpers.  No code in this package chooses a device by itself:
-callers name one, and CUDA is checked for where it is asked for."""
+"""Device helpers.  Entry points that take a device default to "cuda";
+CUDA is checked for where it is asked for, and nothing falls back to the
+CPU."""
 
 from __future__ import annotations
 

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from tyrant_tpu.config import EPSILON, VERY_FAR
+from ..config import EPSILON, VERY_FAR
 
 
 def moller_trumbore(origin, direction, vert, e1, e2):

@@ -1,6 +1,7 @@
 """Build the package's CUDA sources (``tyrant_tpu_torch/csrc/*.cu``) with
 nvcc into one shared library with a plain C interface, and load it with
-ctypes.
+ctypes.  Each source compiles in its own nvcc process, all started
+together, and one more nvcc links the objects.
 
 The library lands in ``build/tyrant_tpu_torch/`` at the root of the
 checkout, named by a hash of the sources and the flags, so an edited
@@ -18,6 +19,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[2]
@@ -27,7 +29,7 @@ BUILD_DIR = _PKG.parent / "build" / "tyrant_tpu_torch"
 # eager PyTorch plain version.  Never --use_fast_math (approximate division,
 # flushed denormals).
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "--fmad=false", "-Xcompiler", "-fPIC"]
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -60,22 +62,32 @@ def library_path() -> Path:
     return BUILD_DIR / f"libtyrant_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands side by side; raise with the first failure's
+    output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    outs = [p.communicate() for p in procs]
+    for cmd, p, (out, err) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                               f"{' '.join(cmd)}\n{err}{out}")
+
+
 def _compile(out: Path) -> None:
     global build_seconds
-    import time
-
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs = [str(Path(tmp) / f"{src.stem}.o") for src in _sources()]
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                  for src, obj in zip(_sources(), objs)])
+        lib = str(Path(tmp) / out.name)
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
+        os.replace(lib, out)
     build_seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stderr}{proc.stdout}")
-    os.replace(tmp, out)
 
 
 def load() -> ctypes.CDLL:
@@ -94,8 +106,9 @@ def load() -> ctypes.CDLL:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.tyrant_traverse.argtypes = [p, i, p, p, p, p, p, i, i, p]
-    lib.tyrant_traverse.restype = i
+    for fn in (lib.tyrant_traverse, lib.tyrant_traverse_wave):
+        fn.argtypes = [p, i, p, p, p, p, p, i, i, p]
+        fn.restype = i
     lib.tyrant_accumulate.argtypes = [p, p, p, i, i, p]
     lib.tyrant_accumulate.restype = i
     lib.tyrant_error_string.argtypes = [i]

@@ -1,5 +1,8 @@
-"""Fat-row BVH tables and the CUDA traversal kernel (``csrc/traverse.cu``),
-the port of ``tyrant_tpu/ops/pallas/traverse_kernel.py``.
+"""Fat-row BVH tables and the two CUDA traversal kernels, the port of
+``tyrant_tpu/ops/pallas/traverse_kernel.py``: ``csrc/traverse.cu`` (one
+ray per thread, the counterpart of the mono generation) and
+``csrc/traverse_wave.cu`` (one 32-ray packet per warp with a shared stack,
+the counterpart of the wave generation, ``wave=True``).
 
 :class:`PacketTables` builds the fat-row table exactly as the JAX package
 does: one 128-float row per interior node, holding both child boxes, tags,
@@ -17,11 +20,12 @@ refs, the split axis and two 6-triangle leaf payloads:
 Integers are stored as exact f32 values, so they must stay below 2^24.
 
 :func:`closest_hit_packets` and :func:`any_hit_packets` keep the contracts
-of their JAX namesakes.  On CUDA tensors they launch the kernel; on CPU
-tensors they run the plain version, the threaded-link walk of
-:mod:`tyrant_tpu_torch.ops.traverse`.  Both find the same closest hit up
-to epsilon ties (hits whose distances differ by less than EPSILON, where
-the accept rule depends on visiting order).
+of their JAX namesakes.  On CUDA tensors they launch the kernel of the
+generation ``wave`` names; on CPU tensors they run the plain version of
+both, the threaded-link walk of :mod:`tyrant_tpu_torch.ops.traverse`.
+All three find the same closest hit up to epsilon ties (hits whose
+distances differ by less than EPSILON, where the accept rule depends on
+visiting order) and the same any-hit flags.
 """
 
 from __future__ import annotations
@@ -29,22 +33,23 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tyrant_tpu.config import VERY_FAR
-from tyrant_tpu.scene.bvh import META_AXIS_SHIFT, META_COUNT_MASK, META_OFFSET_SHIFT
-
+from ...config import VERY_FAR
+from ...scene.bvh import META_AXIS_SHIFT, META_COUNT_MASK, META_OFFSET_SHIFT
 from .. import traverse as plain
 from . import build
 
-STACK_DEPTH = 128  # per-thread stack of csrc/traverse.cu
+STACK_DEPTH = 128  # row stack of a thread (traverse.cu) or warp (traverse_wave.cu)
 ROW_WIDTH = 128
 LEAF_WIDTH = 6
 _L_TAG, _R_TAG, _L_REF, _R_REF, _AXIS = 12, 13, 14, 15, 16
 _L_TRI = 17
 _R_TRI = _L_TRI + 9 * LEAF_WIDTH
 
-# kernel launches (both modes) since the last reset; plain-version calls
-# are not counted
+# kernel launches since the last reset, per generation (closest and any
+# hit alike): ``launches`` for traverse.cu, ``launches_wave`` for
+# traverse_wave.cu; plain-version calls are not counted
 launches = 0
+launches_wave = 0
 
 
 def build_rows(bvh: plain.BVHDevice) -> np.ndarray:
@@ -158,27 +163,36 @@ def _check_rays(origin, direction, t, tables: PacketTables):
                          "prims, or deeper than the traversal stack)")
 
 
-def _launch(origin, direction, t, tables: PacketTables, closest: bool):
-    global launches
+def _launch(origin, direction, t, tables: PacketTables, closest: bool,
+            wave: bool):
+    global launches, launches_wave
+    rows = tables.rows
+    if not rows.is_contiguous() or rows.data_ptr() % 16:
+        raise ValueError("the fat-row table must be contiguous and 16-byte "
+                         "aligned")
     lib = build.load()
+    fn = lib.tyrant_traverse_wave if wave else lib.tyrant_traverse
     n = origin.shape[0]
     t_out = torch.empty_like(t)
     hit = torch.empty((n,), dtype=torch.int32, device=origin.device)
     stream = torch.cuda.current_stream(origin.device).cuda_stream
-    err = lib.tyrant_traverse(tables.rows.data_ptr(), tables.rows.shape[0],
-                              origin.data_ptr(), direction.data_ptr(),
-                              t.data_ptr(), t_out.data_ptr(), hit.data_ptr(),
-                              n, int(closest), stream)
-    build.check(lib, err, "tyrant_traverse launch")
-    launches += 1
+    err = fn(rows.data_ptr(), rows.shape[0], origin.data_ptr(),
+             direction.data_ptr(), t.data_ptr(), t_out.data_ptr(),
+             hit.data_ptr(), n, int(closest), stream)
+    build.check(lib, err, f"{fn.__name__} launch")
+    if wave:
+        launches_wave += 1
+    else:
+        launches += 1
     return t_out, hit
 
 
 def closest_hit_packets(origin, direction, tables: PacketTables,
-                        t_init=None):
+                        t_init=None, wave: bool = False):
     """Closest hit.  origin/direction [N, 3] f32; t_init optional [N] f32.
     Returns (t [N], leaf-order prim id [N] i32), with t == t_init and id
-    -1 where nothing beats t_init."""
+    -1 where nothing beats t_init.  ``wave``: the warp-packet kernel
+    instead of the one-ray-per-thread kernel (CUDA tensors only)."""
     n = origin.shape[0]
     if t_init is None:
         t_init = torch.full((n,), VERY_FAR, dtype=torch.float32,
@@ -188,13 +202,15 @@ def closest_hit_packets(origin, direction, tables: PacketTables,
         return plain.closest_hit(origin, direction, tables.bvh, t_init)
     if origin.device.type != "cuda":
         raise ValueError(f"no traversal for device {origin.device}")
-    return _launch(origin, direction, t_init, tables, closest=True)
+    return _launch(origin, direction, t_init, tables, closest=True,
+                   wave=wave)
 
 
 def any_hit_packets(origin, direction, max_dist, tables: PacketTables,
-                    active=None):
+                    active=None, wave: bool = False):
     """Occlusion before max_dist.  ``active``: optional [N] bool; inactive
-    rays are never occluded.  Returns occluded [N] bool."""
+    rays are never occluded.  Returns occluded [N] bool.  ``wave`` as in
+    :func:`closest_hit_packets`."""
     if active is not None:
         max_dist = torch.where(active, max_dist, torch.zeros_like(max_dist))
     _check_rays(origin, direction, max_dist, tables)
@@ -203,5 +219,6 @@ def any_hit_packets(origin, direction, max_dist, tables: PacketTables,
                              active=max_dist > 0.0)
     if origin.device.type != "cuda":
         raise ValueError(f"no traversal for device {origin.device}")
-    _, occ = _launch(origin, direction, max_dist, tables, closest=False)
+    _, occ = _launch(origin, direction, max_dist, tables, closest=False,
+                     wave=wave)
     return occ > 0

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from tyrant_tpu.config import PI
+from ..config import PI
 
 from . import rng
 

@@ -16,10 +16,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from tyrant_tpu.config import EPSILON, VERY_FAR
-from tyrant_tpu.scene.bvh import (META_AXIS_MASK, META_AXIS_SHIFT,
-                                  META_COUNT_MASK, META_OFFSET_SHIFT)
-
+from ..config import EPSILON, VERY_FAR
+from ..scene.bvh import (META_AXIS_MASK, META_AXIS_SHIFT, META_COUNT_MASK,
+                         META_OFFSET_SHIFT)
 from .intersect import moller_trumbore
 
 LEAF_WIDTH = 6  # == BVHConfig.max_prims_per_leaf
@@ -48,7 +47,7 @@ class BVHDevice:
 
     @classmethod
     def from_host(cls, bvh, tri_vert, tri_e1, tri_e2, device) -> "BVHDevice":
-        """bvh: tyrant_tpu.scene.bvh.BVHArrays; tri_*: [T,3] in ORIGINAL
+        """bvh: scene.bvh.BVHArrays; tri_*: [T,3] in ORIGINAL
         order (permuted to leaf order and padded here)."""
         nn = bvh.n_nodes
         count = bvh.prim_count
@@ -94,11 +93,16 @@ class BVHDevice:
                    leaf_packed=t(leaf_packed, np.float32))
 
 
-def _walk(origin, direction, limit, bvh: BVHDevice, closest: bool, live):
+def _walk(origin, direction, limit, bvh: BVHDevice, closest: bool, live,
+          stats: dict | None = None):
     """Shared closest-hit / any-hit loop over the threaded links.
 
     closest=True: ``limit`` is t_init; returns (t_best, hit_id).
-    closest=False: ``limit`` is the max distance; returns occluded."""
+    closest=False: ``limit`` is the max distance; returns occluded.
+    ``stats``: a dict that, when given, receives the work these rays
+    needed: "box_tests" (node boxes tested), "tri_tests" (triangles
+    tested) and "rows" ([Nn] bool, the interior nodes whose box some ray
+    hit: the fat rows a traversal kernel must read)."""
     n = origin.shape[0]
     dev = origin.device
     nn = bvh.n_nodes
@@ -126,6 +130,9 @@ def _walk(origin, direction, limit, bvh: BVHDevice, closest: bool, live):
     t_best = lim.clone()
     hit_id = torch.full_like(idx, -1)
     occ = torch.zeros_like(neg[:, 0])
+    if stats is not None:
+        stats.update(box_tests=0, tri_tests=0,
+                     rows=torch.zeros((nn,), dtype=torch.bool, device=dev))
 
     while idx.numel():
         lo, hi = lo_all[node], hi_all[node]
@@ -141,6 +148,10 @@ def _walk(origin, direction, limit, bvh: BVHDevice, closest: bool, live):
         do_leaf = box_hit & is_leaf
 
         li = torch.nonzero(do_leaf).squeeze(1)
+        if stats is not None:
+            stats["box_tests"] += idx.numel()
+            stats["tri_tests"] += int(count[li].sum())
+            stats["rows"][node[box_hit & ~is_leaf]] = True
         if li.numel():
             tv = bvh.leaf_packed[lane7[li]].view(-1, LEAF_WIDTH, 9)
             t6 = moller_trumbore(o[li, None, :], d[li, None, :],
@@ -180,23 +191,26 @@ def _walk(origin, direction, limit, bvh: BVHDevice, closest: bool, live):
     return (t_out, id_out) if closest else occ_out
 
 
-def closest_hit(origin, direction, bvh: BVHDevice, t_init=None):
+def closest_hit(origin, direction, bvh: BVHDevice, t_init=None,
+                stats: dict | None = None):
     """Closest hit.  origin/direction [N, 3]; t_init optional [N] initial
     closest distance (the sphere pass).  Returns (t [N], prim_id [N] i32)
-    with t == t_init (or VERY_FAR) and prim_id == -1 on a miss."""
+    with t == t_init (or VERY_FAR) and prim_id == -1 on a miss.
+    ``stats``: see :func:`_walk`."""
     n = origin.shape[0]
     if t_init is None:
         t_init = torch.full((n,), VERY_FAR, dtype=torch.float32,
                             device=origin.device)
     live = torch.ones((n,), dtype=torch.bool, device=origin.device)
-    return _walk(origin, direction, t_init, bvh, True, live)
+    return _walk(origin, direction, t_init, bvh, True, live, stats)
 
 
-def any_hit(origin, direction, max_dist, bvh: BVHDevice, active=None):
+def any_hit(origin, direction, max_dist, bvh: BVHDevice, active=None,
+            stats: dict | None = None):
     """Shadow-ray occlusion: any t > eps with (max_dist - t) > eps.
     ``active``: optional [N] bool; inactive rays are never occluded.
-    Returns occluded [N] bool."""
+    Returns occluded [N] bool.  ``stats``: see :func:`_walk`."""
     n = origin.shape[0]
     live = torch.ones((n,), dtype=torch.bool, device=origin.device) \
         if active is None else active
-    return _walk(origin, direction, max_dist, bvh, False, live)
+    return _walk(origin, direction, max_dist, bvh, False, live, stats)

@@ -6,9 +6,12 @@ One :func:`render_step` tops up the fixed-size ray queue with camera rays
 sample, a next-event shadow ray and Russian roulette (shade), tests the
 shadow rays (connect), and runs one stable sort that both compacts the
 survivors for the next step and orders finished paths by pixel for the
-accumulation.  Extend and connect go through the traversal kernel and the
-accumulation through the accumulation kernel (``ops/kernels``); the rest
-is plain PyTorch.
+accumulation.  Extend and connect go through a traversal kernel (the
+generation ``packet_kernel_mode`` selects) and the accumulation through
+the accumulation kernel (``ops/kernels``); the rest is plain PyTorch.
+:class:`Renderer` also resolves the display image, optionally denoised
+with the guides of one AOV pass per pose (:func:`render_aovs`) and
+bloomed.
 
 State lives in tensors on one device.  Unlike the JAX package, the step
 updates ``state.accum`` in place (the JAX Renderer donates its state).
@@ -21,10 +24,10 @@ import dataclasses
 import torch
 from torch.profiler import record_function
 
-from tyrant_tpu.config import EPSILON, INV_PI, PI, VERY_FAR, RenderConfig
-
 from . import sky as skymod
 from .camera import Camera, CameraParams
+from .config import EPSILON, INV_PI, PI, VERY_FAR, RenderConfig
+from .denoise import atrous_denoise
 from .device import resolve
 from .ops import rng
 from .ops.intersect import intersect_spheres, ray_sphere
@@ -34,7 +37,7 @@ from .ops.kernels.traverse import (PacketTables, any_hit_packets,
 from .ops.sampling import (concentric_sample_disk, cone_sample,
                            cosine_hemisphere_sample, dot, normalize,
                            phong_lobe_sample, reflect, sphere_surface_sample)
-from .ops.tonemap import tonemap_image
+from .ops.tonemap import bloom, tonemap_image
 from .scene.scene import DIFF, LIGHT, PHONG, REFR, SPEC, Scene, SceneData
 
 PHONG_EXPONENT = 40.0
@@ -45,11 +48,12 @@ _KEY_GRID = 8  # survivor-ordering spatial grid resolution
 # the kernels, CPU tensors the plain versions)
 _PORTED_FIELDS = {"width", "height", "num_rays", "max_bounces", "epsilon",
                   "sky", "bvh", "focal_distance_scale", "raygen_order",
-                  "tonemap", "exposure"}
+                  "tonemap", "exposure", "packet_kernel_mode", "denoise",
+                  "denoise_iterations", "bloom_strength", "bloom_threshold",
+                  "bloom_radius"}
 _IGNORED_SELECTORS = {"use_packet_kernel", "use_accum_kernel",
-                      "packet_kernel_mode", "adaptive_connect",
-                      "adaptive_connect_frac", "fuse_step_chains",
-                      "use_kernel_normals"}
+                      "adaptive_connect", "adaptive_connect_frac",
+                      "fuse_step_chains", "use_kernel_normals"}
 
 
 def check_config(cfg: RenderConfig) -> None:
@@ -174,14 +178,27 @@ def _raygen(cfg: RenderConfig, camera: CameraParams, start_position, frame):
 # extend
 # --------------------------------------------------------------------------
 
+def _pick_wave(cfg: RenderConfig, stage: str) -> bool:
+    """Traversal-kernel generation for one stage ("extend", "connect" or
+    "aov"): the warp-packet wave kernel under "wave" (and its deprecated
+    spelling "wave-unsafe"), the one-ray-per-thread kernel under "mono"
+    and "auto".  The JAX package's per-stage "auto" table was set from TPU
+    measurements; the port's "auto" stays mono on every stage until the
+    H100's in-step numbers give it a per-stage table (ROADMAP Queue 1
+    item 14), which is what ``stage`` is for."""
+    del stage  # every stage follows the mode alike for now
+    return cfg.packet_kernel_mode in ("wave", "wave-unsafe")
+
+
 def _intersect_scene(origin, direction, scene: SceneData,
-                     tables: PacketTables):
+                     tables: PacketTables, wave: bool = False):
     """Spheres first, then the BVH seeded with the sphere distance (a
     triangle wins only when closer by more than epsilon).  Returns
     (t, identifier, is_triangle)."""
     t_sph, sph_id = intersect_spheres(origin, direction, scene.sphere_center,
                                       scene.sphere_radius)
-    t, tri_id = closest_hit_packets(origin, direction, tables, t_init=t_sph)
+    t, tri_id = closest_hit_packets(origin, direction, tables, t_init=t_sph,
+                                    wave=wave)
     is_tri = tri_id >= 0
     return t, torch.where(is_tri, tri_id, sph_id), is_tri
 
@@ -430,20 +447,71 @@ def _shade(cfg: RenderConfig, scene: SceneData, sky_params: skymod.SkyParams,
 # connect
 # --------------------------------------------------------------------------
 
-def _connect(scene: SceneData, shadow, tables: PacketTables):
+def _connect(scene: SceneData, shadow, tables: PacketTables,
+             wave: bool = False):
     """Shadow rays: BVH any hit plus the sphere any hit
     ((t + eps) < max distance).  Returns the unoccluded contribution."""
     o, sdir = shadow["origin"], shadow["direction"]
     valid = shadow["valid"]
     maxd = torch.where(valid, shadow["max_dist"],
                        torch.zeros_like(shadow["max_dist"]))
-    occluded = any_hit_packets(o, sdir, maxd, tables)  # invalid: maxd 0
+    occluded = any_hit_packets(o, sdir, maxd, tables,
+                               wave=wave)  # invalid: maxd 0
     t_all = ray_sphere(o[:, None, :], sdir[:, None, :],
                        scene.sphere_center[None], scene.sphere_radius[None])
     sph_occ = ((t_all > 0.0) & ((t_all + EPSILON) < maxd[:, None])).any(1)
     occluded = occluded | sph_occ
     return torch.where(_col(valid & ~occluded), shadow["color"],
                        torch.zeros_like(shadow["color"]))
+
+
+# --------------------------------------------------------------------------
+# AOV pass: noise-free feature buffers for the denoiser
+# --------------------------------------------------------------------------
+
+def aov_primaries(camera: CameraParams, cfg: RenderConfig):
+    """The AOV pass's rays, one per pixel in scan order: (origin [P, 3],
+    direction [P, 3]), contiguous.  Raygen subtracts the sub-pixel jitter
+    from the integer coordinate, so pixel (x, y)'s samples are centred at
+    (x - 0.5, y - 0.5), and these rays go through that point, with no
+    lens sample."""
+    w, h = cfg.width, cfg.height
+    pix = torch.arange(w * h, dtype=torch.int32,
+                       device=camera.position.device)
+    x = (pix % w).to(torch.float32)
+    y = (pix // w).to(torch.float32)
+    ni = (x - 0.5) / w - 0.5
+    nj = (h - (y - 0.5)) / h - 0.5
+    d = _primary_dirs(camera, ni, nj).contiguous()
+    return camera.position[None].expand(w * h, 3).contiguous(), d
+
+
+def render_aovs(scene: SceneData, camera: CameraParams, cfg: RenderConfig,
+                tables: PacketTables) -> dict:
+    """One deterministic primary-ray pass over :func:`aov_primaries`:
+    {albedo [H, W, 3], normal [H, W, 3], depth [H, W]}, the guides of the
+    à-trous denoiser.  The normal faces the ray; misses give albedo 1,
+    normal 0 and depth VERY_FAR."""
+    w, h = cfg.width, cfg.height
+    o, d = aov_primaries(camera, cfg)
+    t, ident, is_tri = _intersect_scene(o, d, scene, tables,
+                                        wave=_pick_wave(cfg, "aov"))
+    hit = t < VERY_FAR
+    hp = o + d * _col(torch.where(hit, t, torch.zeros_like(t)))
+    is_sphere = hit & ~is_tri
+    srow = scene.sphere_table[
+        torch.clamp(ident, 0, scene.sphere_table.shape[0] - 1).long()]
+    trow = scene.tri_shade[
+        torch.clamp(ident, 0, scene.tri_shade.shape[0] - 1).long()]
+    normal = torch.where(_col(is_sphere), (hp - srow[:, 0:3]) / srow[:, 3:4],
+                         trow[:, 0:3])
+    normal = torch.where(_col(dot(normal, d) < 0), normal, -normal)
+    normal = torch.where(_col(hit), normal, torch.zeros_like(normal))
+    albedo = torch.where(_col(is_sphere), srow[:, 4:7], trow[:, 4:7])
+    albedo = torch.where(_col(hit), albedo, torch.ones_like(albedo))
+    depth = torch.where(hit, t, torch.full_like(t, VERY_FAR))
+    return dict(albedo=albedo.reshape(h, w, 3), normal=normal.reshape(h, w, 3),
+                depth=depth.reshape(h, w))
 
 
 # --------------------------------------------------------------------------
@@ -507,7 +575,8 @@ def render_step(state: RenderState, scene: SceneData, camera: CameraParams,
     # 2. extend
     with record_function("extend"):
         t, ident, is_tri = _intersect_scene(rays["origin"], rays["direction"],
-                                            scene, tables)
+                                            scene, tables,
+                                            wave=_pick_wave(cfg, "extend"))
 
     # 3. shade
     with record_function("shade"):
@@ -517,7 +586,8 @@ def render_step(state: RenderState, scene: SceneData, camera: CameraParams,
 
     # 4. connect
     with record_function("connect"):
-        shadow_contrib = _connect(scene, shadow, tables)
+        shadow_contrib = _connect(scene, shadow, tables,
+                                  wave=_pick_wave(cfg, "connect"))
 
     # 5. one stable sort: compaction of survivors AND pixel order of the
     # terminated rays (shade's RNG is keyed by queue slot, so the order
@@ -558,15 +628,18 @@ def render_step(state: RenderState, scene: SceneData, camera: CameraParams,
 
 class Renderer:
     """Host-side wrapper: device upload, accumulation reset on camera or
-    sun movement, framebuffer resolve.
+    sun movement, framebuffer resolve with the optional denoiser and
+    bloom.
 
-    ``Renderer(scene, cfg, device="cuda").step(cam, n)`` runs the main
-    path on the GPU through the CUDA kernels; ``device="cpu"`` runs it
-    with the kernels' plain versions.  ``scene`` is a host :class:`Scene`
-    or, with ``tables``, a :class:`SceneData` already on ``device``."""
+    ``Renderer(scene, cfg).step(cam, n)`` runs the main path on the GPU
+    through the CUDA kernels, and raises when there is no CUDA device;
+    ``device="cpu"`` runs it with the kernels' plain versions.  ``scene``
+    is a host :class:`Scene` or, with ``tables``, a :class:`SceneData`
+    already on ``device``."""
 
-    def __init__(self, scene, cfg: RenderConfig = RenderConfig(), *, device,
-                 sun_position=(0.05, 0.3), tables: PacketTables | None = None):
+    def __init__(self, scene, cfg: RenderConfig = RenderConfig(), *,
+                 device="cuda", sun_position=(0.05, 0.3),
+                 tables: PacketTables | None = None):
         check_config(cfg)
         self.cfg = cfg
         self.device = resolve(device)
@@ -583,6 +656,8 @@ class Renderer:
         self.sun_dir = skymod.sun_direction_from_position(self.sun_position,
                                                           self.device)
         self._last_pose = None
+        self._last_cam: CameraParams | None = None  # for the AOV pass
+        self._aov_cache = None  # (pose, aovs)
         self.state = init_state(cfg, self.device)
 
     def set_sun(self, sun_position):
@@ -598,6 +673,7 @@ class Renderer:
             self.state = reset_accumulation(self.state)
         self._last_pose = pose
         cam = camera.to_device(self.cfg, self.device)
+        self._last_cam = cam
         for _ in range(n_steps):
             self.state = render_step(self.state, self.scene, cam, self.sun_dir,
                                      cfg=self.cfg, tables=self.tables,
@@ -610,7 +686,35 @@ class Renderer:
         return (self.state.accum[:, :3] / counts).reshape(
             self.cfg.height, self.cfg.width, 3)
 
-    def image(self) -> torch.Tensor:
-        """Tone-mapped display image [H, W, 3] in [0, 1]."""
-        return tonemap_image(self.radiance(), self.cfg.tonemap,
-                             self.cfg.exposure)
+    def image(self, denoise: bool | None = None) -> torch.Tensor:
+        """Display image [H, W, 3] in [0, 1]: the radiance mean, denoised
+        when ``denoise`` (default: ``cfg.denoise == "on"``) and a pose was
+        stepped, then bloomed when ``cfg.bloom_strength > 0``, then tone
+        mapped.  The accumulation buffer is untouched."""
+        cfg = self.cfg
+        use_dn = (cfg.denoise == "on") if denoise is None else denoise
+        mean = self.radiance()
+        if use_dn and self._last_cam is not None:
+            aovs = self._pose_aovs()
+            mean = atrous_denoise(mean, aovs["albedo"], aovs["normal"],
+                                  aovs["depth"],
+                                  iterations=cfg.denoise_iterations)
+        if cfg.bloom_strength > 0.0:
+            mean = bloom(mean, cfg.bloom_strength, cfg.bloom_threshold,
+                         cfg.bloom_radius)
+        return tonemap_image(mean, cfg.tonemap, cfg.exposure)
+
+    def aovs(self) -> dict:
+        """The AOV pass (:func:`render_aovs`) for the last stepped pose."""
+        if self._last_cam is None:
+            raise RuntimeError("step() once before requesting AOVs "
+                               "(they are rendered for the last pose)")
+        return self._pose_aovs()
+
+    def _pose_aovs(self) -> dict:
+        """The AOV pass, cached per camera pose."""
+        if self._aov_cache is None or self._aov_cache[0] != self._last_pose:
+            self._aov_cache = (self._last_pose,
+                               render_aovs(self.scene, self._last_cam,
+                                           self.cfg, self.tables))
+        return self._aov_cache[1]

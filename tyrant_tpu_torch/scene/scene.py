@@ -18,10 +18,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from tyrant_tpu.config import BVHConfig
-from tyrant_tpu.scene.bvh import BVHArrays, build_bvh, bvh_stats, pack_meta
-
+from ..config import BVHConfig
 from ..ops.traverse import LEAF_WIDTH, BVHDevice
+from .bvh import BVHArrays, build_bvh, bvh_stats, pack_meta
 
 DIFF, SPEC, REFR, PHONG, LIGHT = 0, 1, 2, 3, 4
 PORTED_MATERIALS = (DIFF, SPEC, REFR, PHONG, LIGHT)
@@ -225,7 +224,7 @@ def _refuse(unported: dict) -> None:
 def _build(tri_lo, tri_hi, cfg: BVHConfig, builder: str) -> BVHArrays:
     if builder in ("auto", "native"):
         try:
-            from tyrant_tpu.native import bvh_native
+            from ..native import bvh_native
             return bvh_native.build_bvh(tri_lo, tri_hi, cfg)
         except (OSError, RuntimeError, subprocess.CalledProcessError):
             # no compiler or loader for the native builder: numpy builds

@@ -10,7 +10,7 @@ import math
 
 import torch
 
-from tyrant_tpu.config import PI, SkyConfig
+from .config import PI, SkyConfig
 
 from .ops.sampling import dot, normalize
 
