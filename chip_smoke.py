@@ -3,13 +3,16 @@
 Builds the port's CUDA kernels from ``tyrant_tpu_torch/csrc``, holds each
 against its plain PyTorch version on the card (on synthetic rays and on
 the inputs the main path gives it: the extend queue, the shadow queue and
-the AOV pass's primaries), renders the main path at full size (1920x1080,
-2,097,152-ray queue, 5 bounces, the seven spheres plus the ~1M-triangle
-benchmark terrain) from the benchmark's three poses with a profiled
-per-stage device-time split, once with each traversal-kernel generation
-(``packet_kernel_mode`` "mono" and "wave"), drives the denoised display
-path (AOV pass, à-trous denoiser, bloom) at full size, and compares small
-renders on the card with the same renders on the CPU.
+the AOV pass's primaries), runs the bench's equivalence gate (the three
+traversal kernels, depth-first mono and wave and breadth-first stream,
+against the plain walk) and the stream kernel's overflow check, renders
+the main path at full size (1920x1080, 2,097,152-ray queue, 5 bounces,
+the seven spheres plus the ~1M-triangle benchmark terrain) from the
+benchmark's three poses with a profiled per-stage device-time split, once
+with each traversal-kernel generation (``packet_kernel_mode`` "mono" and
+"wave"), drives the denoised display path (AOV pass, à-trous denoiser,
+bloom) at full size, compares small renders on the card with the same
+renders on the CPU, and times the three poses with the pose harness.
 
 Run from the root of the repository:
 
@@ -39,14 +42,19 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from tyrant_tpu_torch import render as tr  # noqa: E402
+from tyrant_tpu_torch.bench import equivalence  # noqa: E402
+from tyrant_tpu_torch.bench.harness import (results_to_dict,  # noqa: E402
+                                            run_benchmark)
 from tyrant_tpu_torch.bench.poses import camera_for_pose, mrays_per_s  # noqa: E402
 from tyrant_tpu_torch.config import (EPSILON, RenderConfig,  # noqa: E402
                                      small_config)
 from tyrant_tpu_torch.denoise import atrous_denoise  # noqa: E402
+from tyrant_tpu_torch.ops import stream as plain_stream  # noqa: E402
 from tyrant_tpu_torch.ops import traverse as plain_trav  # noqa: E402
 from tyrant_tpu_torch.ops.intersect import intersect_spheres  # noqa: E402
 from tyrant_tpu_torch.ops.kernels import accum as kacc  # noqa: E402
 from tyrant_tpu_torch.ops.kernels import build  # noqa: E402
+from tyrant_tpu_torch.ops.kernels import stream as kstream  # noqa: E402
 from tyrant_tpu_torch.ops.kernels import traverse as ktrav  # noqa: E402
 from tyrant_tpu_torch.ops.tonemap import bloom, resolve  # noqa: E402
 from tyrant_tpu_torch.scene.procgen import benchmark_scene, terrain  # noqa: E402
@@ -160,6 +168,57 @@ def check_any(what: str, occ_k, occ_p) -> dict:
     return dict(rays=int(occ_p.shape[0]), occluded=n_occ, mismatches=0)
 
 
+def check_stream(what: str, o, d, t, tables, t_walk, id_walk,
+                 cap_mult: int = 3, reps: int = 5) -> dict:
+    """The stream kernel against its plain version on the card (ids equal,
+    t equal bit for bit, the same pairs at every level) and against the
+    depth-first walk's (t_walk, id_walk) with the tie rule; timed beside
+    the plain version.  ``cap_mult`` grows until the frontier fits."""
+    while True:
+        stats_k = {}
+        t_k, id_k, ovf = kstream.closest_hit_stream(
+            o, d, tables, t, cap_mult=cap_mult, return_overflow=True,
+            stats=stats_k)
+        if not int(ovf):
+            break
+        log(f"{what} stream: the frontier overflows at cap_mult={cap_mult} "
+            f"(a level asked for {max(stats_k['pairs'])} pairs, capacity "
+            f"{plain_stream.capacity(o.shape[0], cap_mult)}); trying "
+            f"{cap_mult + 1}")
+        cap_mult += 1
+    stats_p = {}
+    (t_p, id_p, ovf_p), plain_ms = timed_once(
+        lambda: plain_stream.closest_hit_stream(
+            o, d, tables.rows, tables.max_depth, t, cap_mult, stats=stats_p))
+    n_id = int((id_k != id_p).sum())
+    n_t = int((t_k.view(torch.int32) != t_p.view(torch.int32)).sum())
+    if n_id or n_t or int(ovf_p) or stats_k["pairs"] != stats_p["pairs"]:
+        raise AssertionError(
+            f"{what} stream against its plain version: {n_id} ids and {n_t} "
+            f"t differ, plain overflow {int(ovf_p)}, pairs a level "
+            f"{stats_k['pairs']} against {stats_p['pairs']}")
+    vs_walk = check_closest(f"{what} stream vs walk", t_k, id_k, t_walk,
+                            id_walk)
+    before = kstream.launches
+    kstream.closest_hit_stream(o, d, tables, t, cap_mult=cap_mult,
+                               return_overflow=True)
+    per_call = kstream.launches - before
+    ms = cuda_ms(lambda: kstream.closest_hit_stream(
+        o, d, tables, t, cap_mult=cap_mult, return_overflow=True), reps)
+    n = o.shape[0]
+    peak = max(stats_p["pairs"])
+    log(f"{what} stream: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms; 0 id "
+        f"and 0 t differences against the plain version; {stats_p['levels']} "
+        f"levels, peak frontier {peak} pairs ({peak / n:.3f}x the {n} rays) "
+        f"at cap_mult={cap_mult}; {per_call} level launches a call; "
+        f"{stats_p['box_tests']} boxes, {stats_p['tri_tests']} triangles")
+    return dict(vs_walk, ms=ms, plain_ms=plain_ms, max_abs_err=0.0,
+                cap_mult=cap_mult, levels=stats_p["levels"],
+                pairs=stats_p["pairs"], peak_over_rays=peak / n,
+                launches_per_call=per_call, box_tests=stats_p["box_tests"],
+                tri_tests=stats_p["tri_tests"])
+
+
 def bench_rays(bvh, n_rays: int, seed: int = 2024):
     """bench.py's recipe (half box-random, half aimed into the mesh) plus a
     few hundred axis-aligned rays starting on the root box's planes."""
@@ -183,9 +242,11 @@ def bench_rays(bvh, n_rays: int, seed: int = 2024):
 
 
 def phase1(scene, tables, n_rays: int = 65_536) -> dict:
-    """Both traversal kernels against the plain walk on bench.py's rays,
-    with origins on box planes (NaN slab distances).  Returns
-    {generation: {"closest": ..., "any": ...}}."""
+    """The traversal kernels against the plain walk on bench.py's rays,
+    with origins on box planes (NaN slab distances): mono and wave closest
+    and any hit, stream closest (``cap_mult=8``, as the gate) and its
+    overflow at ``cap_mult=1``.  Returns {generation: {"closest": ...,
+    "any": ...}} and {"stream": {"closest": ..., "overflow": ...}}."""
     o, d, span = bench_rays(scene.bvh, n_rays)
     t_p, id_p = plain_trav.closest_hit(o, d, scene.bvh)
     # hits: half with the max distance past the hit (occluded), half short
@@ -213,7 +274,74 @@ def phase1(scene, tables, n_rays: int = 65_536) -> dict:
     vs_mono = int((ids["wave"] != ids["mono"]).sum())
     out["wave"]["closest"]["ties_vs_mono"] = vs_mono
     log(f"phase 1 wave closest: {vs_mono} id ties against the mono kernel")
+    out["stream"] = dict(closest=check_stream("phase 1", o, d, None, tables,
+                                              t_p, id_p, cap_mult=8))
+    out["stream"]["overflow"] = overflow(o, d, tables)
     return out
+
+
+def overflow(o, d, tables) -> dict:
+    """cap_mult=1 must raise, and set the flag with return_overflow."""
+    try:
+        kstream.closest_hit_stream(o, d, tables, cap_mult=1)
+    except RuntimeError as e:
+        if "frontier overflow" not in str(e):
+            raise
+    else:
+        raise AssertionError("cap_mult=1 did not raise the overflow")
+    stats = {}
+    *_, ovf = kstream.closest_hit_stream(o, d, tables, cap_mult=1,
+                                         return_overflow=True, stats=stats)
+    if int(ovf) != 1:
+        raise AssertionError(f"overflow flag {int(ovf)} at cap_mult=1")
+    n, cap = o.shape[0], plain_stream.capacity(o.shape[0], 1)
+    peak = max(stats["pairs"])
+    log(f"overflow: cap_mult=1 raised, flag 1; a level asked for {peak} "
+        f"pairs ({peak / n:.3f}x the {n} rays) past the capacity {cap}")
+    return dict(raised=True, flag=1, capacity=cap, peak_asked=peak)
+
+
+def gate(sd) -> dict:
+    """The equivalence gate (mono, wave and stream against the plain walk)
+    on the scene: a path of its own, counted from 0."""
+    reset_launches()
+    t0 = time.perf_counter()
+    res = equivalence.check_equivalence(sd, device=DEV)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    log(f"equivalence gate: {res!r} in {seconds:.2f} s, launches {launches}")
+    if res != "ok":
+        raise AssertionError(f"equivalence gate: {res}")
+    if not (launches["traverse"] and launches["traverse_wave"]
+            and launches["stream"]):
+        raise AssertionError(f"the gate missed a kernel: {launches}")
+    return dict(result=res, seconds=seconds, launches=launches)
+
+
+def bench_path(sd, cfg: RenderConfig, seconds_per_pose: float = 1.0) -> dict:
+    """The pose harness on the main cell: all three poses, counted from 0."""
+    reset_launches()
+    results = run_benchmark(sd, cfg, seconds_per_pose=seconds_per_pose)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    d = results_to_dict(results)
+    for r in d["poses"]:
+        log(f"harness pose {r['pose']}: {r['avg_ms']:.3f} ms/step over "
+            f"{r['frames']} steps ({r['min_ms']:.3f}-{r['max_ms']:.3f}, "
+            f"spread {r['spread_pct']}%, {r['retries']} retries), "
+            f"{r['total_mrays_per_s']:.3f} Mrays/s")
+    log(f"harness launches: {launches}")
+    log("harness: " + json.dumps(d))
+    if len(results) != 3 or not all(
+            np.isfinite(r.avg_ms) and r.avg_ms > 0 and r.total_mrays_per_s > 0
+            for r in results):
+        raise AssertionError(f"harness results: {d}")
+    if not (launches["traverse"] and launches["accumulate"]) \
+            or launches["stream"]:
+        raise AssertionError(f"the harness did not run through the kernels: "
+                             f"{launches}")
+    return dict(d, launches=launches)
 
 
 def phase2(p: int, n: int) -> dict:
@@ -280,11 +408,12 @@ def stage_split(trace_path: Path, steps: int) -> tuple[dict, float]:
 
 def reset_launches() -> None:
     ktrav.launches = ktrav.launches_wave = kacc.launches = 0
+    kstream.launches = 0
 
 
 def read_launches() -> dict:
     return {"traverse": ktrav.launches, "traverse_wave": ktrav.launches_wave,
-            "accumulate": kacc.launches}
+            "accumulate": kacc.launches, "stream": kstream.launches}
 
 
 def phase3(ren):
@@ -367,7 +496,7 @@ def phase3(ren):
     log(f"phase 3 {tag} launches over {total_steps} steps: {launches}")
     want = {"traverse": 0 if wave else 2 * total_steps,
             "traverse_wave": 2 * total_steps if wave else 0,
-            "accumulate": total_steps}
+            "accumulate": total_steps, "stream": 0}
     if launches != want:
         raise AssertionError(f"main path did not run through the kernels: "
                              f"{launches}, expected {want}")
@@ -388,8 +517,10 @@ def compare_in_step(mono: list, wave: list) -> None:
 
 def check_queue(what: str, o, d, t, tables, bvh, closest: bool,
                 reps: int = 5) -> dict:
-    """Both traversal kernels against the plain walk on one queue of the
-    main path: checked with the tie rule (closest) or exactly (any hit),
+    """Both depth-first traversal kernels against the plain walk on one
+    queue of the main path, and on a closest-hit queue the stream kernel
+    (:func:`check_stream`): checked with the tie rule (closest) or exactly
+    (any hit),
     timed with CUDA events, with the bound from the work the plain walk
     counts on these rays (fat rows read, boxes and triangles tested).
     The plain walk runs once.  A shadow ray whose max distance is at most
@@ -431,16 +562,21 @@ def check_queue(what: str, o, d, t, tables, bvh, closest: bool,
     if closest:
         out["wave"]["ties_vs_mono"] = int(
             (out.pop("wave_ids") != out.pop("mono_ids")).sum())
+        out["stream"] = check_stream(what, o, d, t, tables, t_p, id_p,
+                                     reps=reps)
     log(f"{what} ({n} rays, {live} walked): mono {out['mono']['ms']:.4f} "
-        f"ms, wave {out['wave']['ms']:.4f} ms, plain {plain_ms:.3f} ms; bound "
+        f"ms, wave {out['wave']['ms']:.4f} ms"
+        + (f", stream {out['stream']['ms']:.4f} ms" if closest else "")
+        + f", plain {plain_ms:.3f} ms; bound "
         f"{bnd:.4f} ms ({by}: {rows} fat rows read, {n_bytes / 1e6:.1f} MB, "
         f"{n_ops / 1e9:.3f} G operations)")
     return out
 
 
 def kernels_at_slice(ren) -> dict:
-    """Both traversal kernels against the plain walk, compared and timed
-    on the inputs the main path gives them in pose 0's next step: the
+    """The traversal kernels against the plain walk, compared and timed
+    on the inputs the main path gives them in pose 0's next step (the
+    stream kernel on the two closest-hit queues): the
     extend queue seeded with the sphere pass's t, the shadow queue that
     shade makes from those hits, and the AOV pass's pixel-centre
     primaries with their sphere t."""
@@ -496,7 +632,7 @@ def display_path(scene, tables, cfg: RenderConfig, steps: int = 8) -> dict:
     log(f"display path launches: {steps} steps {stepped}, image() "
         f"{aov_launches} wave launch(es)")
     if stepped != {"traverse": 0, "traverse_wave": 2 * steps,
-                   "accumulate": steps} or aov_launches != 1 \
+                   "accumulate": steps, "stream": 0} or aov_launches != 1 \
             or launches["traverse"] != 0:
         raise AssertionError(f"the display path did not run through the "
                              f"kernels: {stepped} then {launches}")
@@ -567,6 +703,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
 
     p1 = phase1(ren.scene, ren.tables)
+    eq = gate(ren.scene)
     acc = phase2(cfg.num_pixels, cfg.num_rays)
     poses, launches = phase3(ren)
     ren_w = tr.Renderer(ren.scene, dataclasses.replace(
@@ -579,6 +716,7 @@ def main() -> int:
         cfg, denoise="on", bloom_strength=0.1, packet_kernel_mode="wave"))
     mad = phase4()
     mad_dn = phase4(denoise_wave=True)
+    bench = bench_path(ren.scene, cfg)
 
     queues = ("extend", "connect", "aov")
 
@@ -598,6 +736,17 @@ def main() -> int:
                     bound_ms=sl["extend"]["bound_ms"],
                     bound_by=sl["extend"]["bound_by"], library_ms=None)
 
+    stream_checks = [p1["stream"]["closest"], sl["extend"]["stream"],
+                     sl["aov"]["stream"]]
+    stream_entry = dict(
+        max_abs_err=max(c["max_abs_err"] for c in stream_checks),
+        mismatches=sum(c["mismatches"] for c in stream_checks),
+        ties=sum(c["ties"] for c in stream_checks),
+        rays_checked=sum(c["rays"] for c in stream_checks),
+        ms=sl["extend"]["stream"]["ms"],
+        plain_ms=sl["extend"]["stream"]["plain_ms"],
+        bound_ms=sl["extend"]["bound_ms"], bound_by=sl["extend"]["bound_by"],
+        library_ms=None)
     result = {"kernels": [
         {"name": "traverse", "route": "cuda",
          "source": "tyrant_tpu_torch/csrc/traverse.cu",
@@ -615,11 +764,16 @@ def main() -> int:
          "launches": launches["accumulate"], "max_abs_err": acc["max_abs_err"],
          "ms": acc["ms"], "plain_ms": acc["plain_ms"],
          "bound_ms": acc["bound_ms"], "bound_by": acc["bound_by"],
-         "library_ms": acc["library_ms"]}]}
+         "library_ms": acc["library_ms"]},
+        {"name": "stream", "route": "cuda",
+         "source": "tyrant_tpu_torch/csrc/stream.cu",
+         "replaces": "tyrant_tpu/ops/pallas/stream_kernel.py:105",
+         "launches": eq["launches"]["stream"], **stream_entry}]}
     log(json.dumps({"poses": poses, "poses_wave": poses_w,
                     "queues": {q: {k: v for k, v in sl[q].items()}
                                for q in queues},
-                    "phase1": p1, "display": disp, "card_vs_cpu": mad,
+                    "phase1": p1, "gate": eq, "harness": bench,
+                    "display": disp, "card_vs_cpu": mad,
                     "card_vs_cpu_denoised_wave": mad_dn, "build_s": build_s}))
     log(gpu)
     log(json.dumps(result))

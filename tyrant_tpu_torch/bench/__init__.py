@@ -1,0 +1,1 @@
+from .harness import PoseResult, results_to_dict, run_benchmark  # noqa: F401

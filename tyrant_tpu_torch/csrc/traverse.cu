@@ -35,21 +35,6 @@ namespace {
 
 using namespace tyrant;
 
-// Child box test on a row in global memory; box = lo.xyz, hi.xyz.
-__device__ __forceinline__ bool slab_ldg(const float* __restrict__ box,
-                                         const Ray& r, float prune) {
-  return slab(__ldg(box + 0), __ldg(box + 1), __ldg(box + 2), __ldg(box + 3),
-              __ldg(box + 4), __ldg(box + 5), r, prune);
-}
-
-// Möller-Trumbore against one packed triangle in global memory.
-__device__ __forceinline__ float mt_ldg(const float* __restrict__ tri,
-                                        const Ray& r) {
-  return moller_trumbore(__ldg(tri + 0), __ldg(tri + 1), __ldg(tri + 2),
-                         __ldg(tri + 3), __ldg(tri + 4), __ldg(tri + 5),
-                         __ldg(tri + 6), __ldg(tri + 7), __ldg(tri + 8), r);
-}
-
 // One leaf child: `tag` triangles starting at global prim offset `ref`.
 // closest: updates t_best / hit; any hit: sets hit = 1 on the first accept.
 template <bool CLOSEST>

@@ -1,7 +1,7 @@
-// Arithmetic shared by both traversal generations (traverse.cu, one ray
-// per thread; traverse_wave.cu, one 32-ray packet per warp), so the two
-// round identically: the fat-row layout, the ray set-up, the slab test
-// and Möller-Trumbore.  Built with --fmad=false so a*b+c rounds as two
+// Arithmetic shared by the traversal kernels (traverse.cu, one ray per
+// thread; traverse_wave.cu, one 32-ray packet per warp; stream.cu, one
+// (ray, row) pair per thread, level by level), so they round identically:
+// the fat-row layout, the ray set-up, the slab test and Möller-Trumbore.  Built with --fmad=false so a*b+c rounds as two
 // operations, as in the eager PyTorch plain version.
 #pragma once
 
@@ -85,6 +85,21 @@ __device__ __forceinline__ float moller_trumbore(
   const bool valid = (det >= 1e-7f) && (u >= 0.0f) && (u <= 1.0f) &&
                      (v >= 0.0f) && (u + v <= 1.0f);
   return valid ? t : 0.0f;
+}
+
+// Child box test on a row in global memory; box = lo.xyz, hi.xyz.
+__device__ __forceinline__ bool slab_ldg(const float* __restrict__ box,
+                                         const Ray& r, float prune) {
+  return slab(__ldg(box + 0), __ldg(box + 1), __ldg(box + 2), __ldg(box + 3),
+              __ldg(box + 4), __ldg(box + 5), r, prune);
+}
+
+// Möller-Trumbore against one packed triangle in global memory.
+__device__ __forceinline__ float mt_ldg(const float* __restrict__ tri,
+                                        const Ray& r) {
+  return moller_trumbore(__ldg(tri + 0), __ldg(tri + 1), __ldg(tri + 2),
+                         __ldg(tri + 3), __ldg(tri + 4), __ldg(tri + 5),
+                         __ldg(tri + 6), __ldg(tri + 7), __ldg(tri + 8), r);
 }
 
 }  // namespace tyrant

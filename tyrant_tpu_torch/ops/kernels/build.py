@@ -111,6 +111,9 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn.restype = i
     lib.tyrant_accumulate.argtypes = [p, p, p, i, i, p]
     lib.tyrant_accumulate.restype = i
+    lib.tyrant_stream.argtypes = [p, i, p, p, p, p, p, i, p, p, p, i, p, i,
+                                  p, p, p]
+    lib.tyrant_stream.restype = i
     lib.tyrant_error_string.argtypes = [i]
     lib.tyrant_error_string.restype = ctypes.c_char_p
 
