@@ -74,7 +74,11 @@ GENERATIONS = (("mono", False), ("wave", True))
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 SLAB_OPS, MT_OPS = 19, 54
-ROW_BYTES = 128 * 4
+# Table bytes a traversal must read: the depth-first kernels a 64-byte node
+# record a distinct row and a 48-byte record a distinct triangle tested
+# (ops/kernels/traverse.py:build_kernel_tables); the stream kernel the fat
+# row itself, triangles included.
+NODE_BYTES, TRI_BYTES, ROW_BYTES = 64, 48, 128 * 4
 
 
 def log(msg: str) -> None:
@@ -522,7 +526,10 @@ def check_queue(what: str, o, d, t, tables, bvh, closest: bool,
     (:func:`check_stream`): checked with the tie rule (closest) or exactly
     (any hit),
     timed with CUDA events, with the bound from the work the plain walk
-    counts on these rays (fat rows read, boxes and triangles tested).
+    counts on these rays (distinct rows and triangles read, boxes and
+    triangles tested): ``bound_ms`` for the depth-first kernels' node and
+    triangle records, ``stream_bound_ms`` for the fat rows the stream
+    kernel reads.
     The plain walk runs once.  A shadow ray whose max distance is at most
     2 EPSILON cannot be occluded: the plain walk skips it, and the bound
     reads its max distance and writes its flag but not its origin and
@@ -532,21 +539,32 @@ def check_queue(what: str, o, d, t, tables, bvh, closest: bool,
     if closest:
         (t_p, id_p), plain_ms = timed_once(
             lambda: plain_trav.closest_hit(o, d, bvh, t, stats=stats))
-        live = n
+        live, live_mask = n, torch.ones_like(t, dtype=torch.bool)
     else:
         walk = t > 2.0 * EPSILON
         occ_p, plain_ms = timed_once(
             lambda: plain_trav.any_hit(o, d, t, bvh, active=walk,
                                        stats=stats))
-        live = int(walk.sum())
+        live, live_mask = int(walk.sum()), walk
+    counts = simt_counts(stats["row_visits"], live_mask)
+    log(f"{what} counts: {stats['box_tests'] / max(live, 1):.2f} box tests "
+        f"and {counts['mean_trips']:.2f} fat rows a live ray (most "
+        f"{int(stats['visits'].max())} and {counts['max_trips']}); SIMT "
+        f"efficiency {counts['simt_all_slots']:.3f} over all slots in queue "
+        f"order, {counts['simt_live_packed']:.3f} over the live slots "
+        f"packed")
     rows = int(stats["rows"].sum()) + int(not bool(stats["rows"][0]))
-    n_bytes = live * (3 + 3) * 4 + n * 4 + n * (8 if closest else 4) \
-        + rows * ROW_BYTES
+    tris = stats["tris_read"]
+    ray_bytes = live * (3 + 3) * 4 + n * 4 + n * (8 if closest else 4)
+    n_bytes = ray_bytes + rows * NODE_BYTES + tris * TRI_BYTES
     n_ops = SLAB_OPS * stats["box_tests"] + MT_OPS * stats["tri_tests"]
     bnd, by = bound_ms(n_bytes, n_ops)
+    s_bnd, s_by = bound_ms(ray_bytes + rows * ROW_BYTES, n_ops)
     out = dict(rays=n, live_rays=live, plain_ms=plain_ms, rows_read=rows,
-               box_tests=stats["box_tests"], tri_tests=stats["tri_tests"],
-               bytes=n_bytes, ops=n_ops, bound_ms=bnd, bound_by=by)
+               tris_read=tris, box_tests=stats["box_tests"],
+               tri_tests=stats["tri_tests"], bytes=n_bytes, ops=n_ops,
+               bound_ms=bnd, bound_by=by, stream_bound_ms=s_bnd,
+               stream_bound_by=s_by, **counts)
     for gen, wave in GENERATIONS:
         if closest:
             def fn(wave=wave):
@@ -568,9 +586,35 @@ def check_queue(what: str, o, d, t, tables, bvh, closest: bool,
         f"ms, wave {out['wave']['ms']:.4f} ms"
         + (f", stream {out['stream']['ms']:.4f} ms" if closest else "")
         + f", plain {plain_ms:.3f} ms; bound "
-        f"{bnd:.4f} ms ({by}: {rows} fat rows read, {n_bytes / 1e6:.1f} MB, "
-        f"{n_ops / 1e9:.3f} G operations)")
+        f"{bnd:.4f} ms ({by}: {rows} rows and {tris} triangles read, "
+        f"{n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.3f} G operations); with "
+        f"the fat rows, for the stream kernel, {s_bnd:.4f} ms ({s_by})")
     return out
+
+
+def simt_counts(row_visits, live) -> dict:
+    """What the order of a queue costs a kernel that pins one ray to one
+    lane: a live ray takes one loop trip per fat row it reads (the
+    root's always), a warp as many as its longest ray.  Returns the mean
+    and the most trips of a live ray and the SIMT efficiency,
+    sum(trips) / (32 * sum over warps of the most trips), over all slots
+    in queue order and over the live slots packed densely."""
+    trips = torch.where(live, row_visits.clamp(min=1),
+                        torch.zeros_like(row_visits))
+
+    def efficiency(v):
+        if not v.numel():
+            return 1.0
+        pad = (-v.numel()) % 32
+        warps = torch.nn.functional.pad(v, (0, pad)).view(-1, 32)
+        return float(v.sum()) / (32.0 * float(warps.amax(1).sum()))
+
+    packed = trips[live]
+    return dict(mean_trips=float(packed.double().mean()) if packed.numel()
+                else 0.0,
+                max_trips=int(packed.max()) if packed.numel() else 0,
+                simt_all_slots=efficiency(trips),
+                simt_live_packed=efficiency(packed))
 
 
 def kernels_at_slice(ren) -> dict:
@@ -701,6 +745,11 @@ def main() -> int:
         f"{ren.scene.bvh.n_nodes} nodes, {ren.tables.rows.shape[0]} fat rows, "
         f"max depth {ren.tables.max_depth}, built+uploaded in "
         f"{time.perf_counter() - t0:.1f} s")
+    tb = ren.tables
+    log(f"kernel-side table: nodes {tb.nodes.numel() * 4 / 1e6:.1f} MB "
+        f"({tb.nodes.shape[0]} x 64 B), triangles "
+        f"{tb.tris.numel() * 4 / 1e6:.1f} MB ({tb.tris.shape[0]} x 48 B); "
+        f"the fat rows {tb.rows.numel() * 4 / 1e6:.1f} MB")
 
     p1 = phase1(ren.scene, ren.tables)
     eq = gate(ren.scene)
@@ -745,8 +794,8 @@ def main() -> int:
         rays_checked=sum(c["rays"] for c in stream_checks),
         ms=sl["extend"]["stream"]["ms"],
         plain_ms=sl["extend"]["stream"]["plain_ms"],
-        bound_ms=sl["extend"]["bound_ms"], bound_by=sl["extend"]["bound_by"],
-        library_ms=None)
+        bound_ms=sl["extend"]["stream_bound_ms"],
+        bound_by=sl["extend"]["stream_bound_by"], library_ms=None)
     result = {"kernels": [
         {"name": "traverse", "route": "cuda",
          "source": "tyrant_tpu_torch/csrc/traverse.cu",
@@ -770,8 +819,7 @@ def main() -> int:
          "replaces": "tyrant_tpu/ops/pallas/stream_kernel.py:105",
          "launches": eq["launches"]["stream"], **stream_entry}]}
     log(json.dumps({"poses": poses, "poses_wave": poses_w,
-                    "queues": {q: {k: v for k, v in sl[q].items()}
-                               for q in queues},
+                    "queues": {q: sl[q] for q in queues},
                     "phase1": p1, "gate": eq, "harness": bench,
                     "display": disp, "card_vs_cpu": mad,
                     "card_vs_cpu_denoised_wave": mad_dn, "build_s": build_s}))

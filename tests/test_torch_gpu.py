@@ -10,12 +10,14 @@ also runs where JAX is not installed:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
 
+import numpy as np
 import pytest
 import torch
 
 import chip_smoke
 from tyrant_tpu_torch import render as tr
 from tyrant_tpu_torch.config import small_config
+from tyrant_tpu_torch.ops import traverse as plain_trav
 from tyrant_tpu_torch.ops.kernels import accum as kacc
 from tyrant_tpu_torch.ops.kernels import stream as kstream
 from tyrant_tpu_torch.ops.kernels import traverse as ktrav
@@ -42,6 +44,100 @@ def test_traverse_kernel_matches_plain(cuda):
         assert out[gen]["any"]["occluded"] > 0
     assert (ktrav.launches, ktrav.launches_wave) == (before[0] + 2,
                                                      before[1] + 2)
+
+
+def test_dead_and_ragged_shadow_queues(cuda):
+    """Any-hit queues the live-slot compaction has to get right: nine slots
+    in ten dead (max distance 0, or at most 2 EPSILON) with a length that is
+    no multiple of a warp or of a block's tile, and a queue with no live
+    slot at all, through both kernels against the plain walk."""
+    sd = Scene.from_triangles(*terrain(n_quads=32, towers=3),
+                              builder="numpy").to_device(cuda)
+    tables = ktrav.PacketTables(sd.bvh)
+    n = 5 * 2048 + 778
+    assert n % 32 and n % 256
+    o, d, span = chip_smoke.bench_rays(sd.bvh, n)
+    r = np.random.default_rng(5)
+    maxd = np.where(r.random(n) < 0.1, span, 0.0).astype(np.float32)
+    maxd[r.random(n) < 0.05] = 1.5e-3  # under 2 EPSILON: dead as well
+    maxd = torch.from_numpy(maxd).to(cuda)
+    occ_p = plain_trav.any_hit(o, d, maxd, sd.bvh, active=maxd > 2e-3)
+    assert 0 < int(occ_p.sum()) < int((maxd > 2e-3).sum()) < 0.15 * n
+    for gen, wave in chip_smoke.GENERATIONS:
+        before = ktrav.launches + ktrav.launches_wave
+        occ_k = ktrav.any_hit_packets(o, d, maxd, tables, wave=wave)
+        chip_smoke.check_any(f"ragged shadow queue {gen}", occ_k, occ_p)
+        dead = ktrav.any_hit_packets(o, d, torch.zeros_like(maxd), tables,
+                                     wave=wave)
+        assert not bool(dead.any())
+        assert ktrav.launches + ktrav.launches_wave == before + 2
+
+
+def _max_stack(rows: np.ndarray, o: np.ndarray, d: np.ndarray) -> int:
+    """The most row-stack entries the depth-first walk of one ray that hits
+    no triangle holds (near child first, far child waiting)."""
+    with np.errstate(divide="ignore"):
+        inv = 1.0 / d.astype(np.float64)
+    neg = d < 0
+    stack, most = [0], 1
+    while stack:
+        row = rows[stack.pop()]
+        push = []
+        for base, tag, ref in ((0, ktrav._L_TAG, ktrav._L_REF),
+                               (6, ktrav._R_TAG, ktrav._R_REF)):
+            lo, hi = row[base:base + 3], row[base + 3:base + 6]
+            t0 = ((np.where(neg, hi, lo) - o) * inv).max()
+            t1 = ((np.where(neg, lo, hi) - o) * inv).min()
+            push.append(bool(t0 <= t1 and t1 > 0) and row[tag] < 0
+                        and int(row[ref]))
+        near_is_r = bool(neg[int(row[ktrav._AXIS])])
+        far, near = (push[0], push[1]) if near_is_r else (push[1], push[0])
+        stack += [x for x in (far, near) if x]
+        most = max(most, len(stack))
+    return most
+
+
+def test_deep_walk_stacks_a_row_a_level(cuda):
+    """A strip of 16,384 slanted triangles along x and rays that run its
+    whole length inside every box: the far children wait on the stack level
+    after level (more than 8 rows deep) through some 5,000 visits a ray.
+    Both kernels against the plain walk, on those rays and on rays that hit
+    the strip."""
+    n_tri = 16_384
+    x = np.arange(n_tri, dtype=np.float32)
+    v0 = np.stack([x, 0 * x, 0 * x], 1)
+    v1 = v0 + np.float32([1, 0, 0])
+    v2 = v0 + np.float32([0, 1, 1])  # in the plane y = z
+    sd = Scene.from_triangles(v0, v1, v2, builder="numpy").to_device(cuda)
+    tables = ktrav.PacketTables(sd.bvh)
+    r = np.random.default_rng(9)
+    k = 96
+    # along the strip, off the plane y = z: through every box, no hit
+    o = np.stack([np.full(k, -1.0), r.uniform(0.6, 0.95, k),
+                  r.uniform(0.05, 0.4, k)], 1).astype(np.float32)
+    d = np.tile(np.float32([1, 0, 0]), (k, 1))
+    d[k // 2:] = [-1, 0, 0]
+    o[k // 2:, 0] = n_tri + 1.0
+    assert _max_stack(tables.rows.cpu().numpy(), o[0], d[0]) > 8
+    assert _max_stack(tables.rows.cpu().numpy(), o[-1], d[-1]) > 8
+    # and rays that come down onto the strip
+    oh = np.stack([r.uniform(0, n_tri, 4 * k), r.uniform(0.1, 0.9, 4 * k),
+                   np.full(4 * k, 5.0)], 1).astype(np.float32)
+    dh = np.tile(np.float32([0, 0, -1]), (4 * k, 1))
+    o_t = torch.from_numpy(np.concatenate([o, oh])).to(cuda)
+    d_t = torch.from_numpy(np.concatenate([d, dh])).to(cuda)
+    t_p, id_p = plain_trav.closest_hit(o_t, d_t, sd.bvh)
+    assert not bool((id_p[:k] >= 0).any()) and bool((id_p[k:] >= 0).any())
+    maxd = torch.full((o_t.shape[0],), 2.0 * n_tri, device=cuda)
+    occ_p = plain_trav.any_hit(o_t, d_t, maxd, sd.bvh)
+    for gen, wave in chip_smoke.GENERATIONS:
+        t_k, id_k = ktrav.closest_hit_packets(o_t, d_t, tables, wave=wave)
+        res = chip_smoke.check_closest(f"deep strip {gen}", t_k, id_k, t_p,
+                                       id_p)
+        assert res["mismatches"] == 0
+        chip_smoke.check_any(
+            f"deep strip {gen} any hit",
+            ktrav.any_hit_packets(o_t, d_t, maxd, tables, wave=wave), occ_p)
 
 
 def test_accum_kernel_matches_plain(cuda):

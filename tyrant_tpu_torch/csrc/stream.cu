@@ -38,7 +38,6 @@ namespace {
 
 using namespace tyrant;
 
-constexpr unsigned FULL = 0xffffffffu;
 constexpr int NO_HIT = 0x7fffffff;  // id half of a best before any hit
 constexpr int BLOCK = 256;
 

@@ -1,5 +1,5 @@
-// BVH traversal over the fat-row table in warp packets: closest hit and
-// any hit, the same function as traverse.cu.
+// BVH traversal in warp packets: closest hit and any hit, the same
+// function as traverse.cu.
 //
 // Replaces: tyrant_tpu/ops/pallas/traverse_kernel.py::_wave_kernel (with
 // _wave_packet), the wave generation behind closest_hit_packets /
@@ -8,179 +8,178 @@
 // sublanes, SMEM stacks, a VMEM treelet, 8 row DMAs in flight) belongs to
 // the TPU and is not carried over.
 //
-// What bounds it on an H100: row latency and union visits.  Each visit
-// depends on the row read before it, and a 1M-triangle table (about
-// 129 MB) does not fit the 50 MB L2, so deep rows come from HBM.  A packet
-// visits the union of the nodes its rays need: on coherent rays (camera
-// primaries) that union is close to each ray's own walk, on incoherent
-// ones (bounces, shadow rays) every lane pays for the nodes of the others.
+// What bounds it on an H100 (chip_smoke.py on the 1M-triangle terrain;
+// PERF.md has the numbers): the union of the visits.  A packet
+// visits every row that any of its rays needs, one after the other, and
+// learns a child's address only from its parent's row; the bytes are few
+// (30-90 MB a 2M-ray queue, 0.01-0.03 ms of HBM time).  On coherent rays
+// (camera primaries) the union is close to each ray's own walk and the
+// kernel runs level with the one-ray-per-lane kernel; on incoherent ones
+// (bounces, shadow rays) the union grows with every live lane, and the
+// warp pays a whole visit where one lane needs it.
 //
-// What the design does about it: one warp is one packet of 32 consecutive
-// rays, one ray per lane, with one row stack in shared memory that every
-// lane sees alike.  A visit brings the popped 512-byte row into shared
-// memory with one coalesced read (a float4 per lane) instead of the mono
-// kernel's 32 scattered per-thread reads of the same row, and each lane
-// then reads its boxes, tags, refs and triangles from there.  Leaf passes
-// run when __any_sync finds a lane whose box test hit a leaf child; a child
-// row is pushed when any lane hit its box; the near child comes from the
-// direction of the packet's first ray on the row's split axis.  Closest
-// hit prunes each lane with its own t_best.  Any hit drops occluded lanes
-// and lanes with max_dist <= 2 EPS out of the union, and the packet stops
-// when __all_sync finds every lane done.  A ragged last packet masks its
-// dead lanes out of every vote.  Treelet staging in shared memory, TMA and
-// persistent warps are later work.
+// What the design does about it:
+//  - The kernel-side table (ops/kernels/traverse.py:build_kernel_tables): a
+//    row is a 64-byte node record that every lane reads with four 16-byte
+//    loads of one address, which the hardware serves as one broadcast
+//    access, and a leaf's triangles are three such loads each.  So a row
+//    goes straight into registers: no copy through shared memory and none
+//    of the three __syncwarp a visit that the 512-byte row needed.
+//  - The stack is warp-uniform, so every lane keeps its own copy in local
+//    memory, where the 32 lanes' entries interleave: a push or a pop is one
+//    coalesced access that L1 holds, with no shared memory, no race and no
+//    barrier (the same entries in registers, read with a shuffle, measured
+//    5% slower).  One __reduce_or_sync a visit carries every vote (either
+//    child's box hit by a live lane; any lane still live).
+//  - A dead lane (max distance <= 2 EPS) reads neither origin nor
+//    direction, and a packet with no live lane ends before its first visit.
+//  - Measured on this card and left out (PERF.md): the tree's top rows
+//    staged in shared memory (no gain at 64, 256 or 512 rows: L1 holds
+//    them anyway); the row on top of the stack kept in flight in a second
+//    set of registers (16 more registers cost more occupancy than the
+//    overlap returns); any-hit
+//    queues compacted into packets of 32 live rays (the union of 32
+//    incoherent live rays is a walk ten times as long as that of the 2-3
+//    live rays of 32 consecutive slots, and the time follows the longest
+//    walk); persistent blocks striding over the packets (the hardware's
+//    block scheduler balances a packet a warp better).
 //
 // Per lane the arithmetic is the mono kernel's (traverse_common.cuh): the
 // same slab test with NaN-propagating max/min, the same Möller-Trumbore
 // with det >= 1e-7 culling, the same EPS accept rules slot by slot, built
-// with --fmad=false.  Visiting order differs from the plain walk's, which
-// can flip only epsilon ties (two hits within EPS of each other).
+// with --fmad=false.  The near child follows the packet's first ray, so the
+// visiting order differs from the plain walk's, which can flip only epsilon
+// ties (two hits within EPS of each other); any-hit flags do not depend on
+// the order, nor on which rays share a packet.
 #include "traverse_common.cuh"
 
 namespace {
 
 using namespace tyrant;
 
-constexpr int WARPS = 4;  // a block of 128 threads
-constexpr unsigned FULL = 0xffffffffu;
+constexpr int WTHREADS = 128;  // 4 packets walking a block
 
-// One leaf child, read from the shared row: `tag` triangles starting at
-// global prim offset `ref`.  closest: updates t_best / hit; any hit: sets
-// hit = 1 on the first accept.
+// One packet: each lane walks its slot `slot` when `valid`.
 template <bool CLOSEST>
-__device__ __forceinline__ void leaf(const float* tris, int tag, int ref,
-                                     const Ray& r, float limit, float& t_best,
-                                     int& hit) {
-  for (int j = 0; j < LEAF_WIDTH; ++j) {
-    if (j >= tag) break;
-    const float* tri = tris + 9 * j;
-    const float t = moller_trumbore(tri[0], tri[1], tri[2], tri[3], tri[4],
-                                    tri[5], tri[6], tri[7], tri[8], r);
+__device__ __forceinline__ void walk_packet(
+    const float4* __restrict__ nodes, int n_rows,
+    const float4* __restrict__ tris,
+    const float* __restrict__ origin, const float* __restrict__ direction,
+    const float* __restrict__ t_init, float* __restrict__ t_out,
+    int* __restrict__ hit_out, int slot, bool valid) {
+  const float limit = valid ? t_init[slot] : 0.0f;
+  float t_best = limit;
+  int hit = CLOSEST ? -1 : 0;
+  // lanes that take part in the union; any hit: until occluded
+  bool live = valid && (CLOSEST || limit > 2.0f * EPS);
+  const Ray r = live ? make_ray(origin[3 * slot + 0], origin[3 * slot + 1],
+                                origin[3 * slot + 2], direction[3 * slot + 0],
+                                direction[3 * slot + 1],
+                                direction[3 * slot + 2])
+                     : make_ray(0.0f, 0.0f, 0.0f, 1.0f, 1.0f, 1.0f);
+
+  // near-child order: the direction signs of the packet's first live ray
+  const unsigned alive = __ballot_sync(FULL, live);
+  const int lead = alive ? __ffs(alive) - 1 : 0;
+  const int neg_x = __shfl_sync(FULL, (int)r.nx, lead);
+  const int neg_y = __shfl_sync(FULL, (int)r.ny, lead);
+  const int neg_z = __shfl_sync(FULL, (int)r.nz, lead);
+
+  // the packet's row stack: warp-uniform, every lane keeps its own copy in
+  // local memory (a lane's entries interleave with its neighbours', so a
+  // push or a pop is one coalesced access, and no barrier is needed)
+  int stack[STACK_DEPTH];
+  int sp = 0;
+  Node cur = load_node(nodes, 0);
+  while (alive) {
+    const float prune = CLOSEST ? t_best : limit;
+    const bool box_l = live && box_left(cur, r, prune);
+    const bool box_r = live && box_right(cur, r, prune);
+    const int tag_l = tag_left(cur), tag_r = tag_right(cur);
+    const int ref_l = cur.m.y, ref_r = cur.m.z;
+
+    if (box_l && tag_l > 0)
+      leaf<CLOSEST>(tris, tag_l, ref_l, r, limit, t_best, hit);
+    if (!CLOSEST && hit) live = false;
+    if (box_r && tag_r > 0 && live)
+      leaf<CLOSEST>(tris, tag_r, ref_r, r, limit, t_best, hit);
+    if (!CLOSEST && hit) live = false;
+
+    // one vote: a live lane hit the left box, the right box; a lane lives
+    const unsigned votes = __reduce_or_sync(
+        FULL, (box_l && live ? 1u : 0u) | (box_r && live ? 2u : 0u) |
+                  (live ? 4u : 0u));
+    if (!CLOSEST && !(votes & 4u)) break;  // every ray occluded
+    // interior children some live lane hit: push the far one first, so the
+    // near one pops next
+    const bool push_l = (votes & 1u) && tag_l < 0 && ref_l >= 0 &&
+                        ref_l < n_rows;
+    const bool push_r = (votes & 2u) && tag_r < 0 && ref_r >= 0 &&
+                        ref_r < n_rows;
+    const int axis = split_axis(cur);
+    const bool near_is_r = (axis == 0 ? neg_x : (axis == 1 ? neg_y : neg_z));
+    const bool far_ok = near_is_r ? push_l : push_r;
+    const bool near_ok = near_is_r ? push_r : push_l;
+    if (far_ok && sp < STACK_DEPTH) stack[sp++] = near_is_r ? ref_l : ref_r;
+    if (near_ok && sp < STACK_DEPTH) stack[sp++] = near_is_r ? ref_r : ref_l;
+
+    if (sp == 0) break;
+    const int row_id = stack[--sp];
+    cur = load_node(nodes, row_id);
+  }
+  if (valid) {
     if (CLOSEST) {
-      if (t > EPS && (t_best - t) > EPS) {
-        t_best = t;
-        hit = ref + j;
-      }
-    } else if (t > EPS && (limit - t) > EPS) {
-      hit = 1;
-      return;
+      t_out[slot] = t_best;
+      hit_out[slot] = hit;
+    } else {
+      t_out[slot] = limit;
+      hit_out[slot] = hit;
     }
   }
 }
 
 template <bool CLOSEST>
-__global__ void __launch_bounds__(WARPS * 32)
-traverse_wave_kernel(const float* __restrict__ rows, int n_rows,
+__global__ void __launch_bounds__(WTHREADS)
+traverse_wave_kernel(const float4* __restrict__ nodes, int n_rows,
+                     const float4* __restrict__ tris,
                      const float* __restrict__ origin,
                      const float* __restrict__ direction,
                      const float* __restrict__ t_init,
                      float* __restrict__ t_out, int* __restrict__ hit_out,
                      int n) {
-  __shared__ int stacks[WARPS][STACK_DEPTH];
-  __shared__ float4 row_bufs[WARPS][ROW / 4];
-  const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int first = (blockIdx.x * WARPS + warp) * 32;  // the packet's ray 0
-  if (first >= n) return;  // whole warp: no lane of this packet exists
-  const int i = first + lane;
-  const bool valid = i < n;
-
-  const Ray r = valid ? make_ray(origin[3 * i + 0], origin[3 * i + 1],
-                                 origin[3 * i + 2], direction[3 * i + 0],
-                                 direction[3 * i + 1], direction[3 * i + 2])
-                      : make_ray(0.0f, 0.0f, 0.0f, 1.0f, 1.0f, 1.0f);
-  const float limit = valid ? t_init[i] : 0.0f;
-  float t_best = limit;
-  int hit = CLOSEST ? -1 : 0;
-  // lanes that take part in the union's votes
-  bool live = valid && (CLOSEST || limit > 2.0f * EPS);
-
-  // near-child order: the packet's first ray's direction signs
-  const int neg_x = __shfl_sync(FULL, (int)r.nx, 0);
-  const int neg_y = __shfl_sync(FULL, (int)r.ny, 0);
-  const int neg_z = __shfl_sync(FULL, (int)r.nz, 0);
-
-  int* stack = stacks[warp];
-  const float* row = reinterpret_cast<const float*>(row_bufs[warp]);
-  const float4* rows4 = reinterpret_cast<const float4*>(rows);
-  // sp is warp-uniform: every lane pops and pushes alike, lane 0 writes
-  int sp = __any_sync(FULL, live) ? 0 : -1;
-  if (lane == 0) stack[0] = 0;
-  __syncwarp();
-
-  while (sp >= 0) {
-    const int row_id = stack[sp--];
-    if (row_id < 0 || row_id >= n_rows) continue;  // never for a valid table
-    // one coalesced 512-byte read of the row into shared memory
-    row_bufs[warp][lane] = __ldg(rows4 + (size_t)row_id * (ROW / 4) + lane);
-    __syncwarp();
-
-    const float prune = CLOSEST ? t_best : limit;
-    const bool box_l = live && slab(row[0], row[1], row[2], row[3], row[4],
-                                    row[5], r, prune);
-    const bool box_r = live && slab(row[6], row[7], row[8], row[9], row[10],
-                                    row[11], r, prune);
-    const int tag_l = (int)row[L_TAG];
-    const int tag_r = (int)row[R_TAG];
-    const int ref_l = (int)row[L_REF];
-    const int ref_r = (int)row[R_REF];
-
-    if (__any_sync(FULL, box_l && tag_l > 0) && box_l && tag_l > 0)
-      leaf<CLOSEST>(row + L_TRI, tag_l, ref_l, r, limit, t_best, hit);
-    if (!CLOSEST && hit) live = false;
-    if (__any_sync(FULL, box_r && tag_r > 0 && live) && box_r && tag_r > 0 &&
-        live)
-      leaf<CLOSEST>(row + R_TRI, tag_r, ref_r, r, limit, t_best, hit);
-    if (!CLOSEST && hit) live = false;
-
-    // interior children any live lane hit: push the far one first, so the
-    // near one pops next
-    const bool push_l = __any_sync(FULL, box_l && tag_l < 0 && live);
-    const bool push_r = __any_sync(FULL, box_r && tag_r < 0 && live);
-    const int axis = (int)row[AXIS];
-    const bool near_is_r = (axis == 0 ? neg_x : (axis == 1 ? neg_y : neg_z));
-    const bool far_ok = near_is_r ? push_l : push_r;
-    const bool near_ok = near_is_r ? push_r : push_l;
-    __syncwarp();  // every lane has read the row and the popped slot
-    if (far_ok && sp + 1 < STACK_DEPTH) {
-      ++sp;
-      if (lane == 0) stack[sp] = near_is_r ? ref_l : ref_r;
-    }
-    if (near_ok && sp + 1 < STACK_DEPTH) {
-      ++sp;
-      if (lane == 0) stack[sp] = near_is_r ? ref_r : ref_l;
-    }
-    if (!CLOSEST && __all_sync(FULL, !live)) break;
-    __syncwarp();  // the pushes are visible before the next pop
-  }
-  if (valid) {
-    t_out[i] = CLOSEST ? t_best : limit;
-    hit_out[i] = hit;
-  }
+  // a packet is 32 consecutive slots
+  const int slot = (blockIdx.x * (WTHREADS / 32) + (threadIdx.x >> 5)) * 32
+                   + lane;
+  if (slot - lane < n)
+    walk_packet<CLOSEST>(nodes, n_rows, tris, origin, direction, t_init,
+                         t_out, hit_out, slot, slot < n);
 }
 
 }  // namespace
 
-// Same contract as tyrant_traverse (traverse.cu): rows [n_rows, 128] f32,
-// 16-byte aligned; origin, direction [n, 3] f32; t_init [n] f32 (closest:
-// initial best distance; any hit: max distance).  Writes t_out [n] f32 and
-// hit_out [n] i32 (closest: leaf-order triangle id or -1; any hit: 0/1).
-// Launches on `stream`; returns cudaGetLastError().
-extern "C" int tyrant_traverse_wave(const float* rows, int n_rows,
-                                    const float* origin,
+// Same contract as tyrant_traverse (traverse.cu): nodes [n_rows, 16] i32,
+// 64-byte aligned, and tris [T, 12] f32, 16-byte aligned; origin, direction
+// [n, 3] f32; t_init [n] f32 (closest: initial best distance; any hit: max
+// distance).  Writes t_out [n] f32 and hit_out [n] i32 (closest: leaf-order
+// triangle id or -1; any hit: 0/1).  Launches on `stream`; returns
+// cudaGetLastError().
+extern "C" int tyrant_traverse_wave(const void* nodes, int n_rows,
+                                    const void* tris, const float* origin,
                                     const float* direction,
                                     const float* t_init, float* t_out,
                                     int* hit_out, int n, int closest,
                                     void* stream) {
   if (n <= 0) return 0;
-  const int block = WARPS * 32;
-  const int grid = (n + block - 1) / block;
+  const float4* nd = static_cast<const float4*>(nodes);
+  const float4* tr = static_cast<const float4*>(tris);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int grid = (n + WTHREADS - 1) / WTHREADS;  // a packet a warp
   if (closest)
-    traverse_wave_kernel<true><<<grid, block, 0, s>>>(
-        rows, n_rows, origin, direction, t_init, t_out, hit_out, n);
+    traverse_wave_kernel<true><<<grid, WTHREADS, 0, s>>>(
+        nd, n_rows, tr, origin, direction, t_init, t_out, hit_out, n);
   else
-    traverse_wave_kernel<false><<<grid, block, 0, s>>>(
-        rows, n_rows, origin, direction, t_init, t_out, hit_out, n);
+    traverse_wave_kernel<false><<<grid, WTHREADS, 0, s>>>(
+        nd, n_rows, tr, origin, direction, t_init, t_out, hit_out, n);
   return (int)cudaGetLastError();
 }

@@ -107,7 +107,7 @@ def load() -> ctypes.CDLL:
 def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.tyrant_traverse, lib.tyrant_traverse_wave):
-        fn.argtypes = [p, i, p, p, p, p, p, i, i, p]
+        fn.argtypes = [p, i, p, p, p, p, p, p, i, i, p]
         fn.restype = i
     lib.tyrant_accumulate.argtypes = [p, p, p, i, i, p]
     lib.tyrant_accumulate.restype = i

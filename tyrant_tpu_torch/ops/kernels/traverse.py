@@ -1,8 +1,9 @@
 """Fat-row BVH tables and the two CUDA traversal kernels, the port of
 ``tyrant_tpu/ops/pallas/traverse_kernel.py``: ``csrc/traverse.cu`` (one
-ray per thread, the counterpart of the mono generation) and
-``csrc/traverse_wave.cu`` (one 32-ray packet per warp with a shared stack,
-the counterpart of the wave generation, ``wave=True``).
+ray per lane, any-hit queues compacted to their live slots first; the
+counterpart of the mono generation) and ``csrc/traverse_wave.cu`` (one
+32-ray packet per warp with one warp-uniform stack, the counterpart of
+the wave generation, ``wave=True``).
 
 :class:`PacketTables` builds the fat-row table exactly as the JAX package
 does: one 128-float row per interior node, holding both child boxes, tags,
@@ -18,6 +19,25 @@ refs, the split axis and two 6-triangle leaf payloads:
   lanes  17..  left leaf payload, then right leaf payload (6 x v0,e1,e2)
 
 Integers are stored as exact f32 values, so they must stay below 2^24.
+``tables.rows`` is the table of the plain versions, the stream kernel and
+interop.  The two depth-first kernels read a second table made from it once
+(:func:`build_kernel_tables`), laid out for 16-byte vector loads:
+
+  ``nodes`` [R, 16] i32, 64 bytes a row and 64-byte aligned (four loads):
+    words 0-11   both child AABBs, the f32 bit patterns of lanes 0-11
+    word  12     left tag (bits 0-7, signed) | right tag (bits 8-15,
+                 signed) | split axis (bits 16-17)
+    words 13-14  left ref, right ref as integers
+    word  15     0
+  ``tris`` [T, 12] f32, 48 bytes a triangle (three loads): v0, e1, e2 and
+    three zeros, at its leaf-order prim offset, so a leaf child's ``tag``
+    triangles are the consecutive records from its ``ref``.
+
+Triangles go by prim offset, not by row: a row keeps 12 slots of which the
+terrain fills about a third, so by row the table would be 145 MB for 1M
+triangles and by offset it is 50 MB, with the leaves of one subtree side by
+side; the node part (16 MB for 252,562 rows) then fits the H100's 50 MB L2
+on its own.
 
 :func:`closest_hit_packets` and :func:`any_hit_packets` keep the contracts
 of their JAX namesakes.  On CUDA tensors they launch the kernel of the
@@ -38,7 +58,7 @@ from ...scene.bvh import META_AXIS_SHIFT, META_COUNT_MASK, META_OFFSET_SHIFT
 from .. import traverse as plain
 from . import build
 
-STACK_DEPTH = 128  # row stack of a thread (traverse.cu) or warp (traverse_wave.cu)
+STACK_DEPTH = 128  # row stack of a ray (traverse.cu) or packet (traverse_wave.cu)
 ROW_WIDTH = 128
 LEAF_WIDTH = 6
 _L_TAG, _R_TAG, _L_REF, _R_REF, _AXIS = 12, 13, 14, 15, 16
@@ -111,6 +131,45 @@ def build_rows(bvh: plain.BVHDevice) -> np.ndarray:
     return rows
 
 
+NODE_WORDS = 16  # i32 words of a kernel-side node record (64 bytes)
+TRI_WORDS = 12   # f32 words of a kernel-side triangle record (48 bytes)
+NODE_ALIGN = 64  # bytes: a record never straddles two 64-byte lines
+
+
+def build_kernel_tables(rows: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(nodes [R, 16] i32, tris [T, 12] f32) of a fat-row table: the layout
+    the depth-first kernels read (see the module's docstring).  T is the
+    end of the last leaf's prim range, at least 1."""
+    n_rows = rows.shape[0]
+    tags = rows[:, [_L_TAG, _R_TAG]].astype(np.int32)
+    refs = rows[:, [_L_REF, _R_REF]].astype(np.int32)
+    axis = rows[:, _AXIS].astype(np.int32)
+    nodes = np.zeros((n_rows, NODE_WORDS), np.int32)
+    nodes[:, 0:12] = np.ascontiguousarray(rows[:, 0:12]).view(np.int32)
+    nodes[:, 12] = (tags[:, 0] & 0xff) | ((tags[:, 1] & 0xff) << 8) \
+        | (axis << 16)
+    nodes[:, 13:15] = refs
+    ends = np.where(tags > 0, refs + tags, 0)
+    tris = np.zeros((max(int(ends.max(initial=0)), 1), TRI_WORDS), np.float32)
+    for side, tri_c in ((0, _L_TRI), (1, _R_TRI)):
+        for j in range(LEAF_WIDTH):
+            has = tags[:, side] > j
+            tris[refs[has, side] + j, 0:9] = \
+                rows[has, tri_c + 9 * j:tri_c + 9 * j + 9]
+    return nodes, tris
+
+
+def _aligned(a: np.ndarray, device) -> torch.Tensor:
+    """``a`` in a tensor from torch's allocator (64-byte aligned on the
+    CPU, 512 on CUDA; numpy's own memory is only 16-byte aligned)."""
+    src = torch.from_numpy(a)
+    out = torch.empty_like(src, device=device).copy_(src)
+    if out.data_ptr() % NODE_ALIGN:
+        raise RuntimeError(f"kernel table at {out.data_ptr():#x} is not "
+                           f"{NODE_ALIGN}-byte aligned")
+    return out
+
+
 def _interior_depth(rows: np.ndarray) -> int:
     """Levels of interior rows below and including the root (row 0)."""
     depth, frontier = 0, np.asarray([0], np.int64)
@@ -129,7 +188,8 @@ class PacketTables:
     ``supported`` is False when the scene exceeds the exact-f32 integer
     range (2^24 rows or primitive offsets) or the tree is deeper than the
     kernel's stack; the renderer then refuses the scene.  ``bvh`` is kept
-    for the plain version, which walks the threaded links.
+    for the plain version, which walks the threaded links.  ``nodes`` and
+    ``tris`` are the kernel-side table (:func:`build_kernel_tables`).
     """
 
     def __init__(self, bvh: plain.BVHDevice, rows: np.ndarray | None = None):
@@ -137,7 +197,10 @@ class PacketTables:
         through interop); None builds it from ``bvh``."""
         rows = build_rows(bvh) if rows is None else np.array(rows, np.float32)
         self.bvh = bvh
-        self.rows = torch.from_numpy(rows).to(bvh.node_packed.device)
+        dev = bvh.node_packed.device
+        self.rows = torch.from_numpy(rows).to(dev)
+        self.nodes, self.tris = (_aligned(a, dev)
+                                 for a in build_kernel_tables(rows))
         self.max_depth = _interior_depth(rows) + 1  # + the leaf level
         leaf_refs = np.concatenate([rows[rows[:, _L_TAG] > 0, _L_REF],
                                     rows[rows[:, _R_TAG] > 0, _R_REF]])
@@ -166,17 +229,19 @@ def _check_rays(origin, direction, t, tables: PacketTables):
 def _launch(origin, direction, t, tables: PacketTables, closest: bool,
             wave: bool):
     global launches, launches_wave
-    rows = tables.rows
-    if not rows.is_contiguous() or rows.data_ptr() % 16:
-        raise ValueError("the fat-row table must be contiguous and 16-byte "
-                         "aligned")
+    nodes, tris = tables.nodes, tables.tris
+    if not (nodes.is_contiguous() and tris.is_contiguous()) \
+            or nodes.data_ptr() % NODE_ALIGN or tris.data_ptr() % 16:
+        raise ValueError("the kernel-side table must be contiguous, its "
+                         "nodes 64-byte and its triangles 16-byte aligned")
     lib = build.load()
     fn = lib.tyrant_traverse_wave if wave else lib.tyrant_traverse
     n = origin.shape[0]
     t_out = torch.empty_like(t)
     hit = torch.empty((n,), dtype=torch.int32, device=origin.device)
     stream = torch.cuda.current_stream(origin.device).cuda_stream
-    err = fn(rows.data_ptr(), rows.shape[0], origin.data_ptr(),
+    err = fn(nodes.data_ptr(), nodes.shape[0], tris.data_ptr(),
+             origin.data_ptr(),
              direction.data_ptr(), t.data_ptr(), t_out.data_ptr(),
              hit.data_ptr(), n, int(closest), stream)
     build.check(lib, err, f"{fn.__name__} launch")

@@ -101,8 +101,15 @@ def _walk(origin, direction, limit, bvh: BVHDevice, closest: bool, live,
     closest=False: ``limit`` is the max distance; returns occluded.
     ``stats``: a dict that, when given, receives the work these rays
     needed: "box_tests" (node boxes tested), "tri_tests" (triangles
-    tested) and "rows" ([Nn] bool, the interior nodes whose box some ray
-    hit: the fat rows a traversal kernel must read)."""
+    tested), "rows" ([Nn] bool, the interior nodes whose box some ray
+    hit: the fat rows a traversal kernel must read), "leaves" ([Nn] bool,
+    the leaves whose triangles some ray tested) and "tris_read" (the
+    triangles of those leaves: each distinct triangle tested, once),
+    "visits" ([N] i64,
+    the boxes each ray tested; they sum to "box_tests") and "row_visits"
+    ([N] i64, the interior boxes each ray hit: the fat rows a depth-first
+    kernel reads for it, beside the root's, in the same near-first
+    order)."""
     n = origin.shape[0]
     dev = origin.device
     nn = bvh.n_nodes
@@ -132,7 +139,11 @@ def _walk(origin, direction, limit, bvh: BVHDevice, closest: bool, live,
     occ = torch.zeros_like(neg[:, 0])
     if stats is not None:
         stats.update(box_tests=0, tri_tests=0,
-                     rows=torch.zeros((nn,), dtype=torch.bool, device=dev))
+                     rows=torch.zeros((nn,), dtype=torch.bool, device=dev),
+                     leaves=torch.zeros((nn,), dtype=torch.bool, device=dev),
+                     visits=torch.zeros((n,), dtype=torch.int64, device=dev),
+                     row_visits=torch.zeros((n,), dtype=torch.int64,
+                                            device=dev))
 
     while idx.numel():
         lo, hi = lo_all[node], hi_all[node]
@@ -152,6 +163,9 @@ def _walk(origin, direction, limit, bvh: BVHDevice, closest: bool, live,
             stats["box_tests"] += idx.numel()
             stats["tri_tests"] += int(count[li].sum())
             stats["rows"][node[box_hit & ~is_leaf]] = True
+            stats["leaves"][node[li]] = True
+            stats["visits"][idx] += 1
+            stats["row_visits"][idx] += (box_hit & ~is_leaf).long()
         if li.numel():
             tv = bvh.leaf_packed[lane7[li]].view(-1, LEAF_WIDTH, 9)
             t6 = moller_trumbore(o[li, None, :], d[li, None, :],
@@ -188,6 +202,8 @@ def _walk(origin, direction, limit, bvh: BVHDevice, closest: bool, live,
             idx, o, d, inv, neg = idx[keep], o[keep], d[keep], inv[keep], neg[keep]
             octant, node, lim = octant[keep], node[keep], lim[keep]
             t_best, hit_id, occ = t_best[keep], hit_id[keep], occ[keep]
+    if stats is not None:
+        stats["tris_read"] = int(count_all[stats["leaves"]].sum())
     return (t_out, id_out) if closest else occ_out
 
 
