@@ -17,6 +17,16 @@ with each traversal-kernel generation (``packet_kernel_mode`` "mono" and
 bloom) at full size, compares small renders on the card with the same
 renders on the CPU, and times the three poses with the pose harness.
 
+Then two scenes loaded from files it writes into ``build/chip_smoke/scene``
+(no download): a JSON description that places the terrain, as a binary PLY
+with vertex normals, and instances of an OBJ/MTL asset as a GGX conductor,
+as glass of IOR 1.7 and as frosted glass, under the seven spheres, rendered
+at full size with ``dispersion=0.02`` under "mono" and "wave"; and a glTF
+binary of a double-sided terrain with no sphere, lit by the sun alone.  On
+each, the traversal kernels are held against the plain walk on the extend,
+shadow and AOV queues and the accumulation against its plain version on a
+step's queue.
+
 Run from the root of the repository:
 
     python3 chip_smoke.py
@@ -44,6 +54,7 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from tyrant_tpu_torch import native  # noqa: E402
 from tyrant_tpu_torch import render as tr  # noqa: E402
 from tyrant_tpu_torch.bench import equivalence  # noqa: E402
 from tyrant_tpu_torch.bench.harness import (results_to_dict,  # noqa: E402
@@ -54,12 +65,16 @@ from tyrant_tpu_torch.config import (EPSILON, VERY_FAR,  # noqa: E402
 from tyrant_tpu_torch.denoise import atrous_denoise  # noqa: E402
 from tyrant_tpu_torch.ops import stream as plain_stream  # noqa: E402
 from tyrant_tpu_torch.ops import traverse as plain_trav  # noqa: E402
-from tyrant_tpu_torch.ops.intersect import intersect_spheres  # noqa: E402
 from tyrant_tpu_torch.ops.kernels import accum as kacc  # noqa: E402
 from tyrant_tpu_torch.ops.kernels import build  # noqa: E402
 from tyrant_tpu_torch.ops.kernels import stream as kstream  # noqa: E402
 from tyrant_tpu_torch.ops.kernels import traverse as ktrav  # noqa: E402
 from tyrant_tpu_torch.ops.tonemap import bloom, resolve  # noqa: E402
+from tyrant_tpu_torch.native import ply_native  # noqa: E402
+from tyrant_tpu_torch.scene import files as scene_files  # noqa: E402
+from tyrant_tpu_torch.scene.description import load_description  # noqa: E402
+from tyrant_tpu_torch.scene.instancing import MeshAsset  # noqa: E402
+from tyrant_tpu_torch.scene.ply import load_ply_attrs  # noqa: E402
 from tyrant_tpu_torch.scene.procgen import benchmark_scene, terrain  # noqa: E402
 from tyrant_tpu_torch.scene.scene import Scene  # noqa: E402
 
@@ -67,6 +82,7 @@ DEV = torch.device("cuda")
 STAGES = ("raygen", "extend", "shade", "connect", "sort", "accumulate")
 TIE = 1e-3  # hit distances closer than EPSILON: either id is right
 TRACE_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
+SCENE_DIR = TRACE_DIR / "scene"  # the loaded scenes' files
 GENERATIONS = (("mono", False), ("wave", True))
 
 # The card's peaks for the bound (NVIDIA's H100 SXM data sheet, at the
@@ -253,6 +269,13 @@ def phase0() -> float:
     t = time.perf_counter() - t0
     log(f"kernel build+load {t:.2f} s (nvcc {build.build_seconds} s) -> "
         f"{build.library_path().relative_to(build.BUILD_DIR.parents[1])}")
+    # the native host library (BVH builder, PLY loader): built here, so a
+    # failing g++ stops the run instead of leaving the Python builder and
+    # loader to stand in
+    t0 = time.perf_counter()
+    native.get_lib()
+    log(f"native host library build+load {time.perf_counter() - t0:.2f} s -> "
+        f"{native.library_path().relative_to(native.BUILD_DIR.parents[1])}")
     return t
 
 
@@ -677,14 +700,15 @@ def read_launches() -> dict:
             "accumulate": kacc.launches, "stream": kstream.launches}
 
 
-def phase3(ren):
-    """The main path at full size, with the traversal generation that
-    ``ren.cfg.packet_kernel_mode`` selects: for each pose 4 warm-up steps,
-    8 steps timed with CUDA events, then 2 steps under the profiler for
-    the per-stage device-time split and the device's idle share."""
+def phase3(ren, poses_run=(0, 1, 2), label: str = ""):
+    """The main path at full size (or, with a ``label``, another scene's
+    path), with the traversal generation that ``ren.cfg.packet_kernel_mode``
+    selects: for each pose 4 warm-up steps, 8 steps timed with CUDA
+    events, then 2 steps under the profiler for the per-stage device-time
+    split and the device's idle share."""
     cfg = ren.cfg
     wave = tr._pick_wave(cfg, "extend")
-    tag = "wave" if wave else "mono"
+    tag = label + ("wave" if wave else "mono")
     TRACE_DIR.mkdir(parents=True, exist_ok=True)
     # the profiler's first session sets up the device tracing; keep that
     # cost out of pose 0's window
@@ -694,7 +718,7 @@ def phase3(ren):
     reset_launches()
     total_steps = 0
     poses = []
-    for i in range(3):
+    for i in poses_run:
         cam = camera_for_pose(i)
         ended = torch.zeros((), dtype=torch.int64, device=DEV)
 
@@ -783,10 +807,11 @@ def compare_in_step(mono: list, wave: list) -> None:
 
 
 def check_queue(what: str, o, d, t, tables, bvh, closest: bool,
-                reps: int = 5) -> dict:
+                reps: int = 5, stream: bool = True) -> dict:
     """Both depth-first traversal kernels against the plain walk on one
     queue of the main path, and on a closest-hit queue the stream kernel
-    (:func:`check_stream`): checked with the tie rule (closest) or exactly
+    (:func:`check_stream`, unless ``stream`` is False): checked with the
+    tie rule (closest) or exactly
     (any hit),
     timed with CUDA events, with the bound from the work the plain walk
     counts on these rays (distinct node and triangle records read, boxes
@@ -837,19 +862,21 @@ def check_queue(what: str, o, d, t, tables, bvh, closest: bool,
                 return ktrav.any_hit_packets(o, d, t, tables, wave=wave)
             res = check_any(f"{what} {gen}", fn(), occ_p)
         out[gen] = dict(res, ms=cuda_ms(fn, reps))
+    stream = stream and closest
     if closest:
         out["wave"]["ties_vs_mono"] = int(
             (out.pop("wave_ids") != out.pop("mono_ids")).sum())
+    if stream:
         out["stream"] = check_stream(what, o, d, t, tables, t_p, id_p,
                                      reps=reps)
     log(f"{what} ({n} rays, {live} walked): mono {out['mono']['ms']:.4f} "
         f"ms, wave {out['wave']['ms']:.4f} ms"
-        + (f", stream {out['stream']['ms']:.4f} ms" if closest else "")
+        + (f", stream {out['stream']['ms']:.4f} ms" if stream else "")
         + f", plain {plain_ms:.3f} ms; bound "
         f"{bnd:.4f} ms ({by}: {rows} rows and {tris} triangles read, "
         f"{n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.3f} G operations)"
         + (f"; the stream kernel's frontier floor "
-           f"{out['stream']['frontier_floor_ms']:.4f} ms" if closest else ""))
+           f"{out['stream']['frontier_floor_ms']:.4f} ms" if stream else ""))
     return out
 
 
@@ -878,13 +905,14 @@ def simt_counts(row_visits, live) -> dict:
                 simt_live_packed=efficiency(packed))
 
 
-def kernels_at_slice(ren) -> dict:
+def kernels_at_slice(ren, stream: bool = True, label: str = "slice") -> dict:
     """The traversal kernels against the plain walk, compared and timed
-    on the inputs the main path gives them in pose 0's next step (the
-    stream kernel on the two closest-hit queues): the
-    extend queue seeded with the sphere pass's t, the shadow queue that
-    shade makes from those hits, and the AOV pass's pixel-centre
-    primaries with their sphere t."""
+    on the inputs the path gives them in pose 0's next step (the stream
+    kernel on the two closest-hit queues unless ``stream`` is False): the
+    extend queue seeded with the sphere pass's t (VERY_FAR everywhere in a
+    scene without spheres), the shadow queue that shade makes from those
+    hits, and the AOV pass's pixel-centre primaries with their sphere t;
+    and the accumulation on the queue of the step before."""
     cfg, sc = ren.cfg, ren.scene
     cam = camera_for_pose(0)
     ren.step(cam, 1)
@@ -892,14 +920,15 @@ def kernels_at_slice(ren) -> dict:
     camd = cam.to_device(cfg, DEV)
     rays = tr.merge_queue(cfg, ren.state, camd)
     o, d = rays["origin"], rays["direction"]
-    t_sph, sph_id = intersect_spheres(o, d, sc.sphere_center, sc.sphere_radius)
-    extend = check_queue("slice extend closest", o, d, t_sph, ren.tables,
-                         sc.bvh, closest=True)
+    t_sph, sph_id = tr.sphere_pass(o, d, sc)
+    extend = check_queue(f"{label} extend closest", o, d, t_sph, ren.tables,
+                         sc.bvh, closest=True, stream=stream)
+    extend["t_init_all_far"] = bool((t_sph >= VERY_FAR).all())
     # the same rays without the sphere pass's t_init: how much the spheres
     # (the ground sphere above all) prune the BVH walk
     unseeded = {gen: cuda_ms(lambda wave=wave: ktrav.closest_hit_packets(
         o, d, ren.tables, wave=wave), 5) for gen, wave in GENERATIONS}
-    log(f"slice extend without the sphere t_init: mono "
+    log(f"{label} extend without the sphere t_init: mono "
         f"{unseeded['mono']:.4f} ms, wave {unseeded['wave']:.4f} ms")
 
     t, tri_id = ktrav.closest_hit_packets(o, d, ren.tables, t_sph)
@@ -911,13 +940,14 @@ def kernels_at_slice(ren) -> dict:
     maxd = torch.where(valid, shadow["max_dist"],
                        torch.zeros_like(shadow["max_dist"]))
     so, sd = shadow["origin"].contiguous(), shadow["direction"].contiguous()
-    connect = check_queue(f"slice connect any hit ({int(valid.sum())} valid)",
-                          so, sd, maxd, ren.tables, sc.bvh, closest=False)
+    connect = check_queue(
+        f"{label} connect any hit ({int(valid.sum())} valid)", so, sd, maxd,
+        ren.tables, sc.bvh, closest=False)
 
     ao, ad = tr.aov_primaries(camd, cfg)
-    a_sph, _ = intersect_spheres(ao, ad, sc.sphere_center, sc.sphere_radius)
-    aov = check_queue("slice AOV primaries closest", ao, ad, a_sph,
-                      ren.tables, sc.bvh, closest=True)
+    a_sph, _ = tr.sphere_pass(ao, ad, sc)
+    aov = check_queue(f"{label} AOV primaries closest", ao, ad, a_sph,
+                      ren.tables, sc.bvh, closest=True, stream=stream)
     return dict(extend=dict(extend, unseeded_ms=unseeded), connect=connect,
                 aov=aov, accumulate=accum)
 
@@ -990,6 +1020,137 @@ def phase4(denoise_wave: bool = False) -> float:
     return mad
 
 
+# where the loaded scene's asset instances stand: in pose 0's view, in
+# front of and among the seven spheres (write_description gives them the
+# GGX, glass and frosted looks in turn)
+PLACEMENTS = ((-14.0, 12.0, 24.0), (14.0, 12.0, 24.0), (0.0, 4.0, 27.0),
+              (-28.0, 28.0, 30.0), (28.0, 28.0, 30.0), (-8.0, 30.0, 40.0),
+              (8.0, 30.0, 40.0), (0.0, 60.0, 45.0), (-40.0, 10.0, 20.0))
+
+
+def loaded_path(cfg: RenderConfig, n_tris: int = 1_048_576,
+                dispersion: float = 0.02) -> dict:
+    """The loaded scene: ``benchmark_scene(n_tris)`` written as a binary
+    PLY with vertex normals, the OBJ/MTL asset and a JSON description
+    placing both (``scene.files``), loaded with ``load_description`` and
+    rendered at ``cfg``'s size with the description's dispersion, pose 0
+    under "mono" and "wave" (:func:`phase3`); then the kernels on its
+    queues (:func:`kernels_at_slice`, without the stream kernel, which is
+    not on a step)."""
+    SCENE_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    ply = SCENE_DIR / "terrain.ply"
+    counts = scene_files.write_ply(ply, *benchmark_scene(n_tris),
+                                   normals=True)
+    asset = scene_files.write_asset_obj(SCENE_DIR)
+    desc = scene_files.write_description(SCENE_DIR / "scene.json", ply,
+                                         asset, PLACEMENTS,
+                                         dispersion=dispersion)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    MeshAsset.load(str(ply))
+    ply_s = time.perf_counter() - t0
+    # the native loader (positions and faces) against the Python one
+    t0 = time.perf_counter()
+    v_n, f_n = ply_native.load_ply(str(ply))
+    native_s = time.perf_counter() - t0
+    v_p, f_p, _, _ = load_ply_attrs(str(ply))
+    if not (np.array_equal(v_n.view(np.uint32), v_p.view(np.uint32))
+            and np.array_equal(f_n, f_p)):
+        raise AssertionError("the native PLY loader differs from the Python "
+                             "loader")
+    t0 = time.perf_counter()
+    bundle = load_description(desc, builder="native")
+    load_s = time.perf_counter() - t0
+    sc = bundle.scene
+    t0 = time.perf_counter()  # the BVH alone, rebuilt once to time it
+    Scene.from_triangles(sc.tri_vert, sc.tri_vert + sc.tri_e1,
+                         sc.tri_vert + sc.tri_e2, builder="native")
+    bvh_s = time.perf_counter() - t0
+    cfg = dataclasses.replace(cfg, **bundle.config)
+    if cfg.dispersion != dispersion:
+        raise AssertionError(f"the description's dispersion: {bundle.config}")
+    torch.cuda.reset_peak_memory_stats()
+    before_mb = torch.cuda.memory_allocated() / 1e6
+    ren = tr.Renderer(sc, cfg)
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6
+    sd = ren.scene
+    flags = dict(has_ggx=sd.has_ggx, has_rrefr=sd.has_rrefr,
+                 has_var_ior=sd.has_var_ior,
+                 smooth_normals=sd.smooth_normals, spheres=sd.n_spheres)
+    log(f"loaded scene: {counts['vertices']} vertices, {counts['faces']} "
+        f"faces in the PLY; {sc.stats['triangles']} triangles, "
+        f"{sc.stats['instances']} instances of {sc.stats['unique_meshes']} "
+        f"meshes, {sd.bvh.n_nodes} nodes, {ren.tables.rows.shape[0]} fat "
+        f"rows, max depth {ren.tables.max_depth}; files written in "
+        f"{write_s:.2f} s; the PLY with normals parsed in {ply_s:.2f} s "
+        f"(positions and faces by the native loader in {native_s:.2f} s, "
+        f"equal to the Python loader's), the "
+        f"description loaded (every file parsed, instances flattened, BVH "
+        f"built) in {load_s:.2f} s, the BVH alone built in {bvh_s:.2f} s; "
+        f"tri_attr {sd.tri_attr.numel() * 4 / 1e6:.1f} MB; device memory "
+        f"after building the Renderer: peak {peak_mb:.1f} MB ({before_mb:.1f}"
+        f" MB before); {flags}; dispersion {cfg.dispersion}")
+    if not all(flags[k] for k in ("has_ggx", "has_rrefr", "has_var_ior",
+                                  "smooth_normals")) or flags["spheres"] != 7:
+        raise AssertionError(f"the loaded scene lacks a feature: {flags}")
+    mono, launches_m = phase3(ren, (0,), "loaded-")
+    ren_w = tr.Renderer(sd, dataclasses.replace(cfg, packet_kernel_mode="wave"),
+                        tables=ren.tables)
+    wave, launches_w = phase3(ren_w, (0,), "loaded-")
+    del ren_w
+    queues = kernels_at_slice(ren, stream=False, label="loaded")
+    return dict(triangles=sc.stats["triangles"],
+                instances=sc.stats["instances"], write_s=write_s,
+                ply_parse_s=ply_s, native_ply_s=native_s, load_s=load_s,
+                bvh_s=bvh_s,
+                renderer_peak_mb=peak_mb, memory_before_mb=before_mb,
+                flags=flags, poses=mono, poses_wave=wave,
+                launches={"mono": launches_m, "wave": launches_w},
+                queues=queues)
+
+
+def sphere_free_path(cfg: RenderConfig, n_tris: int = 262_144) -> dict:
+    """The sphere-free scene: ``benchmark_scene(n_tris)`` written as a
+    double-sided glTF binary (every triangle and its flipped twin) and
+    loaded with ``Scene.load``: no sphere, the sun alone.  Rendered at
+    pose 0 under ``cfg`` (:func:`phase3`), then no hit may carry a sphere
+    id, and the kernels on its queues, every extend ray seeded with
+    VERY_FAR (:func:`kernels_at_slice`)."""
+    SCENE_DIR.mkdir(parents=True, exist_ok=True)
+    glb = scene_files.write_glb(SCENE_DIR / "bare.glb",
+                                *benchmark_scene(n_tris))
+    t0 = time.perf_counter()
+    sc = Scene.load(glb, builder="native")
+    load_s = time.perf_counter() - t0
+    if sc.spheres.count:
+        raise AssertionError("the glTF scene has spheres")
+    ren = tr.Renderer(sc, cfg)
+    log(f"sphere-free scene: {sc.stats['triangles']} triangles (double "
+        f"sided), no sphere, loaded in {load_s:.2f} s; "
+        f"{ren.tables.rows.shape[0]} fat rows, max depth "
+        f"{ren.tables.max_depth}")
+    poses, launches = phase3(ren, (0,), "sphere-free-")
+    cam = camera_for_pose(0)
+    rays = tr.merge_queue(cfg, ren.state, cam.to_device(cfg, DEV))
+    t, ident, is_tri = tr._intersect_scene(rays["origin"], rays["direction"],
+                                           ren.scene, ren.tables)
+    hits = t < VERY_FAR
+    n_sph = int((hits & ~is_tri).sum())
+    log(f"sphere-free extend: {int(hits.sum())} of {t.shape[0]} rays hit, "
+        f"{n_sph} with a sphere id, smallest id {int(ident.min())}")
+    if n_sph or int(ident.min()) < -1:
+        raise AssertionError("a hit without a triangle in a scene without "
+                             "spheres")
+    queues = kernels_at_slice(ren, stream=False, label="sphere-free")
+    if not queues["extend"]["t_init_all_far"]:
+        raise AssertionError("the sphere-free extend queue was seeded with "
+                             "a sphere distance")
+    return dict(triangles=sc.stats["triangles"], load_s=load_s, poses=poses,
+                launches=launches, queues=queues)
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1032,6 +1193,10 @@ def main() -> int:
     mad = phase4()
     mad_dn = phase4(denoise_wave=True)
     bench = bench_path(ren.scene, cfg)
+    del ren
+    torch.cuda.empty_cache()
+    ld = loaded_path(cfg)
+    sf = sphere_free_path(cfg)
 
     queues = ("extend", "connect", "aov")
 
@@ -1049,7 +1214,17 @@ def main() -> int:
                     ms=sl["extend"][gen]["ms"],
                     plain_ms=sl["extend"]["plain_ms"],
                     bound_ms=sl["extend"]["bound_ms"],
-                    bound_by=sl["extend"]["bound_by"], library_ms=None)
+                    bound_by=sl["extend"]["bound_by"], library_ms=None,
+                    # the loaded and the sphere-free scene's queues
+                    loaded={q: queue_entry(ld["queues"][q], gen)
+                            for q in queues},
+                    sphere_free={q: queue_entry(sf["queues"][q], gen)
+                                 for q in queues})
+
+    def queue_entry(q, gen):
+        return dict(ms=q[gen]["ms"], plain_ms=q["plain_ms"],
+                    bound_ms=q["bound_ms"], bound_by=q["bound_by"],
+                    rays=q["rays"], mismatches=q[gen]["mismatches"])
 
     stream_checks = [p1["stream"]["closest"], sl["extend"]["stream"],
                      sl["aov"]["stream"]]
@@ -1066,22 +1241,36 @@ def main() -> int:
         frontier_floor_ms=sl["extend"]["stream"]["frontier_floor_ms"],
         library_ms=None)
     at_step = sl["accumulate"]
+
+    def step_entry(q):
+        return {k: q[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms", "live", "distinct")}
+
     result = {"kernels": [
         {"name": "traverse", "route": "cuda",
          "source": "tyrant_tpu_torch/csrc/traverse.cu",
          "replaces": "tyrant_tpu/ops/pallas/traverse_kernel.py:164",
-         "launches": launches["traverse"], **entry("mono")},
+         "launches": launches["traverse"],
+         "loaded_launches": ld["launches"]["mono"]["traverse"],
+         "sphere_free_launches": sf["launches"]["traverse"],
+         **entry("mono")},
         {"name": "traverse_wave", "route": "cuda",
          "source": "tyrant_tpu_torch/csrc/traverse_wave.cu",
          "replaces": "tyrant_tpu/ops/pallas/traverse_kernel.py:646",
          "launches": launches_w["traverse_wave"],
          "display_launches": disp["launches"]["traverse_wave"],
+         "loaded_launches": ld["launches"]["wave"]["traverse_wave"],
          **entry("wave")},
         {"name": "accumulate", "route": "cuda",
          "source": "tyrant_tpu_torch/csrc/accum.cu",
          "replaces": "tyrant_tpu/ops/pallas/accum_kernel.py:50",
          "launches": launches["accumulate"],
-         "max_abs_err": max(acc["max_abs_err"], at_step["max_abs_err"]),
+         "loaded_launches": ld["launches"]["mono"]["accumulate"]
+         + ld["launches"]["wave"]["accumulate"],
+         "sphere_free_launches": sf["launches"]["accumulate"],
+         "max_abs_err": max(acc["max_abs_err"], at_step["max_abs_err"],
+                            ld["queues"]["accumulate"]["max_abs_err"],
+                            sf["queues"]["accumulate"]["max_abs_err"]),
          "ms": acc["ms"], "kernel_ms": acc["kernel_ms"],
          "plain_ms": acc["plain_ms"], "bound_ms": acc["bound_ms"],
          "bound_by": acc["bound_by"], "library_ms": acc["library_ms"],
@@ -1094,7 +1283,9 @@ def main() -> int:
                         "bound_by": at_step["bound_by"],
                         "library_ms": at_step["library_ms"],
                         "live": at_step["live"],
-                        "distinct": at_step["distinct"]}},
+                        "distinct": at_step["distinct"]},
+         "loaded_step_queue": step_entry(ld["queues"]["accumulate"]),
+         "sphere_free_step_queue": step_entry(sf["queues"]["accumulate"])},
         {"name": "stream", "route": "cuda",
          "source": "tyrant_tpu_torch/csrc/stream.cu",
          "replaces": "tyrant_tpu/ops/pallas/stream_kernel.py:105",
@@ -1105,7 +1296,8 @@ def main() -> int:
                     "phase1": p1, "gate": eq, "harness": bench,
                     "display": disp, "card_vs_cpu": mad,
                     "card_vs_cpu_denoised_wave": mad_dn, "build_s": build_s,
-                    "renderer_peak_mb": peak_mb}))
+                    "renderer_peak_mb": peak_mb, "loaded": ld,
+                    "sphere_free": sf}))
     log(gpu)
     log(json.dumps(result))
     log(json.dumps({"ok": True, "device": {

@@ -2,7 +2,8 @@
 
 These run chip_smoke.py's checks (phases 1, 2 and 4, the kernels at the
 main path's queues, the denoised display path, the stream kernel's
-overflow, the equivalence gate and the pose harness) at small sizes, so the
+overflow, the equivalence gate, the pose harness, the loaded scene and the
+sphere-free scene) at small sizes, so the
 card's checks live in one place.  The kernels have no CPU mode, so
 these tests skip without a CUDA device.  This file imports no JAX, so it
 also runs where JAX is not installed:
@@ -253,3 +254,67 @@ def test_stream_gate_and_harness_at_small_size(cuda):
         sd, small_config(width=96, height=64, num_rays=8192),
         seconds_per_pose=0.2)
     assert [p["pose"] for p in bench["poses"]] == [0, 1, 2]
+
+
+def test_loaded_scene_path_at_small_size(cuda):
+    """chip_smoke's loaded scene (a PLY terrain with vertex normals and
+    instances of the OBJ/MTL asset as GGX, IOR-1.7 glass and frosted glass,
+    from a JSON description, dispersion 0.02) at a small size: both
+    traversal kernels against the plain walk on its extend, shadow and AOV
+    queues, the accumulation on its step's queue, launches counted."""
+    cfg = small_config(width=96, height=64, num_rays=8192)
+    ld = chip_smoke.loaded_path(cfg, n_tris=20_000)
+    assert all(ld["flags"][k] for k in ("has_ggx", "has_rrefr",
+                                        "has_var_ior", "smooth_normals"))
+    for q in ("extend", "connect", "aov"):
+        for gen in ("mono", "wave"):
+            assert ld["queues"][q][gen]["mismatches"] == 0
+    assert ld["launches"]["mono"]["traverse"] == 28
+    assert ld["launches"]["wave"]["traverse_wave"] == 28
+    assert ld["queues"]["accumulate"]["max_abs_err"] == 0.0
+
+
+def test_sphere_free_path_at_small_size(cuda):
+    """chip_smoke's sphere-free glTF scene at a small size: every extend
+    ray seeded with VERY_FAR, both kernels against the plain walk, no hit
+    with a sphere id, the accumulation on its step's queue."""
+    cfg = small_config(width=96, height=64, num_rays=8192)
+    sf = chip_smoke.sphere_free_path(cfg, n_tris=8_000)
+    assert sf["queues"]["extend"]["t_init_all_far"]
+    for q in ("extend", "connect", "aov"):
+        for gen in ("mono", "wave"):
+            assert sf["queues"][q][gen]["mismatches"] == 0
+    assert sf["launches"]["traverse"] == 28
+    assert sf["queues"]["accumulate"]["max_abs_err"] == 0.0
+
+
+@pytest.mark.parametrize("n_tris", [1, 5])
+@pytest.mark.parametrize("spheres", ["seven", "none"])
+def test_root_leaf_scene(cuda, n_tris, spheres):
+    """A mesh whose BVH root is a leaf (the single-row pseudo-root of
+    ops/kernels/traverse.py), with and without spheres: both traversal
+    kernels and the stream kernel against the plain walk on the extend,
+    shadow and AOV queues, and a render whose paths all end counted."""
+    from tyrant_tpu_torch.scene.scene import Spheres
+    k = np.arange(n_tris, dtype=np.float32)[:, None]
+    # up-facing triangles in pose 0's view, each above the one before
+    v0 = np.float32([-30, 0, 0]) + k * np.float32([12, 6, 2])
+    v1 = v0 + np.float32([60, 0, 0])
+    v2 = v0 + np.float32([0, 60, 5])
+    sp = None
+    if spheres == "none":
+        e = np.zeros((0, 3), np.float32)
+        sp = Spheres(center=e, radius=np.zeros(0, np.float32), color=e,
+                     emission=e, refl=np.zeros(0, np.int32))
+    cfg = small_config(width=64, height=48, num_rays=4096)
+    ren = tr.Renderer(Scene.from_triangles(v0, v1, v2, spheres=sp,
+                                           builder="numpy"), cfg)
+    assert ren.tables.rows.shape[0] == 1
+    queues = chip_smoke.kernels_at_slice(ren)
+    for q in ("extend", "connect", "aov"):
+        for gen in ("mono", "wave"):
+            assert queues[q][gen]["mismatches"] == 0
+    assert queues["extend"]["mono"]["hits"] > 0
+    assert queues["extend"]["t_init_all_far"] == (spheres == "none")
+    acc = ren.state.accum
+    assert bool(torch.isfinite(acc).all()) and float(acc[:, 3].sum()) > 0

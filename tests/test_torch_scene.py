@@ -17,7 +17,7 @@ from tyrant_tpu_torch.native import bvh_native
 from tyrant_tpu_torch.scene import bvh as tbvh
 from tyrant_tpu_torch.scene import procgen as tprocgen
 from tyrant_tpu_torch.ops.kernels.traverse import PacketTables
-from tyrant_tpu_torch.scene.scene import Scene, Spheres
+from tyrant_tpu_torch.scene.scene import DeltaLights, Scene, Spheres
 
 _BVH = ("node_packed", "miss_flat", "tri_packed", "leaf_packed")
 _SCENE = ("tri_shade", "sphere_table", "sphere_center", "sphere_radius",
@@ -157,15 +157,21 @@ def test_interop_round_trip():
     assert tables.max_depth == jt.max_depth and tables.supported
 
 
-@pytest.mark.parametrize("kw", [dict(tri_vn=np.zeros((1, 3, 3))),
-                                dict(envmap=np.ones((4, 8, 3))),
-                                dict(tri_refl=np.array([4])),
-                                dict(tri_refl=np.array([5]))])
+@pytest.mark.parametrize("kw", [
+    dict(textures=[np.ones((2, 2, 3), np.float32)],
+         tri_uv=np.zeros((1, 3, 2)), tri_tex=np.zeros(1, np.int32)),
+    dict(envmap=np.ones((4, 8, 3))),
+    dict(tri_refl=np.array([4])),
+    dict(delta_lights=DeltaLights.from_specs(
+        [{"type": "point", "position": [0, 0, 9]}]))])
 def test_unported_scene_features_raise(kw):
+    """A scene builds with every host record; the features the port does
+    not shade are refused by name when it is uploaded."""
     v = np.zeros((1, 3), np.float32)
+    sc = Scene.from_triangles(v, v + [1, 0, 0], v + [0, 1, 0],
+                              builder="numpy", **kw)
     with pytest.raises(ValueError, match="not ported"):
-        Scene.from_triangles(v, v + [1, 0, 0], v + [0, 1, 0], builder="numpy",
-                             **kw)
+        sc.to_device("cpu")
 
 
 def test_unported_sphere_sets_raise():
@@ -173,6 +179,6 @@ def test_unported_sphere_sets_raise():
     s.refl = s.refl.copy()
     s.refl[0] = 4  # a second emissive sphere
     with pytest.raises(ValueError, match="several emissive"):
-        Scene.load(None, spheres=s)
-    with pytest.raises(ValueError, match="not ported"):
-        Scene.load("mesh.ply")
+        Scene.load(None, spheres=s).to_device("cpu")
+    with pytest.raises(ValueError, match="environment maps"):
+        Scene.load(None, envmap=np.ones((4, 8, 3))).to_device("cpu")

@@ -4,6 +4,8 @@ PyTorch, with hand-written CUDA kernels for NVIDIA Hopper.
 The JAX package ``tyrant_tpu`` is the reference.  This package imports
 nothing of it and never imports ``jax``: it keeps its own copies of the
 framework-free host modules (``config``, ``scene.bvh``, ``scene.procgen``,
+the scene loaders ``scene.ply``/``obj``/``stl``/``gltf``/``description``
+with ``scene.instancing``, ``scene.texture`` and ``utils``, and
 ``native``) and ports the rest.
 
 Device rule: every function takes its device from its tensors (or from an

@@ -1,5 +1,6 @@
-"""Camera model, the port of ``tyrant_tpu/camera.py`` (the pose, its
-projection basis and its upload; the fly controls are not ported).
+"""Camera model, the port of ``tyrant_tpu/camera.py`` (the pose, aiming at
+a point, its projection basis and its upload; the fly controls are not
+ported).
 :class:`Camera` is host state (numpy); :meth:`Camera.to_device` gives the
 per-frame :class:`CameraParams` tensors on a named device."""
 
@@ -45,6 +46,20 @@ class Camera:
         ch, sh = math.cos(self.horizontal_angle), math.sin(self.horizontal_angle)
         d = np.array([cv * sh, cv * ch, sv], np.float32)
         return d / np.linalg.norm(d)
+
+    def look_at(self, target):
+        """Aim at a world point: set the spherical angles so ``direction``
+        points at ``target``, pitch clamped short of the poles."""
+        d = np.asarray(target, np.float64) - np.asarray(self.position,
+                                                        np.float64)
+        n = np.linalg.norm(d)
+        if n < 1e-12:
+            return
+        d = d / n
+        self.vertical_angle = max(-math.pi / 2 + 1e-3,
+                                  min(float(np.arcsin(np.clip(d[2], -1, 1))),
+                                      math.pi / 2 - 1e-3))
+        self.horizontal_angle = float(np.arctan2(d[0], d[1]))
 
     def basis(self, cfg: RenderConfig):
         """Projection basis (right scaled by 1.5 * aspect, up by 1.5)."""

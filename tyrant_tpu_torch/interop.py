@@ -18,23 +18,36 @@ from .render import RenderState
 from .scene.scene import SceneData, scene_data
 
 SCENE_LEAVES = ("node_packed", "miss_flat", "tri_packed", "leaf_packed",
-                "tri_shade", "sphere_table")
+                "tri_shade", "sphere_table", "tri_attr", "sphere_center")
+# the SceneData flags the render step gates its terms on
+SCENE_FLAGS = ("smooth_normals", "has_ggx", "has_rrefr", "has_var_ior")
 STATE_FIELDS = ("accum", "origin", "direction", "direct", "pending", "pixel",
                 "bounces", "last_specular", "n_carried", "start_position",
                 "frame", "shadow_rays")
 
 
 def scene_from_numpy(leaves: Mapping[str, np.ndarray], rows: np.ndarray,
-                     device) -> tuple[SceneData, PacketTables]:
+                     device, flags: Mapping[str, bool] | None = None
+                     ) -> tuple[SceneData, PacketTables]:
     """``leaves``: the SceneData arrays named in SCENE_LEAVES (the BVH's
-    four under their BVHDevice names); ``rows``: PacketTables.rows."""
+    four under their BVHDevice names; ``sphere_center`` [S, 3] gives the
+    sphere count, 0 for a scene without spheres); ``rows``:
+    PacketTables.rows; ``flags``: the SceneData flags named in
+    SCENE_FLAGS (absent ones are off)."""
     missing = [k for k in SCENE_LEAVES if k not in leaves]
     if missing:
         raise ValueError(f"scene leaves missing: {missing}")
+    flags = dict(flags or {})
+    unknown = set(flags) - set(SCENE_FLAGS)
+    if unknown:
+        raise ValueError(f"unknown scene flags: {sorted(unknown)}")
     bvh = BVHDevice.from_numpy(leaves["node_packed"], leaves["miss_flat"],
                                leaves["tri_packed"], leaves["leaf_packed"],
                                device)
-    sd = scene_data(bvh, leaves["tri_shade"], leaves["sphere_table"], device)
+    sd = scene_data(bvh, leaves["tri_shade"], leaves["sphere_table"], device,
+                    n_spheres=int(np.shape(leaves["sphere_center"])[0]),
+                    tri_attr=leaves["tri_attr"],
+                    **{k: bool(v) for k, v in flags.items()})
     return sd, PacketTables(bvh, rows=np.asarray(rows))
 
 

@@ -1,10 +1,10 @@
-"""Native (C++) host code of the port: the binned-SAH BVH builder.
+"""Native (C++) host code of the port: the binned-SAH BVH builder and the
+PLY loader.
 
-``bvh_builder.cpp`` is compiled with g++ at first use into
-``build/tyrant_tpu_torch/`` at the root of the checkout (never next to the
-sources), named by a hash of the source and the flags, and loaded with
-ctypes.  Mesh files are not loaded by the port, so there is no PLY
-loader here.
+``bvh_builder.cpp`` and ``ply_loader.cpp`` are compiled together with g++
+at first use into one library in ``build/tyrant_tpu_torch/`` at the root
+of the checkout (never next to the sources), named by a hash of both
+sources and the flags, and loaded with ctypes.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ import threading
 from pathlib import Path
 
 _DIR = Path(__file__).resolve().parent
-_SOURCE = _DIR / "bvh_builder.cpp"
+_SOURCES = (_DIR / "bvh_builder.cpp", _DIR / "ply_loader.cpp")
 BUILD_DIR = _DIR.parents[1] / "build" / "tyrant_tpu_torch"
 # no -march=native and no FMA contraction: the SAH costs round as in the
 # numpy builder, so both pick the same splits
@@ -30,8 +30,9 @@ _lib: ctypes.CDLL | None = None
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
-    h.update(_SOURCE.read_bytes())
-    return BUILD_DIR / f"libtyrant_bvh_{h.hexdigest()[:16]}.so"
+    for src in _SOURCES:
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libtyrant_native_{h.hexdigest()[:16]}.so"
 
 
 def _compile(out: Path) -> None:
@@ -39,7 +40,8 @@ def _compile(out: Path) -> None:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
     os.close(fd)
     try:
-        subprocess.run(["g++", *GXX_FLAGS, "-o", tmp, str(_SOURCE)],
+        subprocess.run(["g++", *GXX_FLAGS, "-o", tmp,
+                        *(str(s) for s in _SOURCES)],
                        check=True, capture_output=True)
         os.replace(tmp, out)
     finally:
@@ -48,7 +50,7 @@ def _compile(out: Path) -> None:
 
 
 def get_lib() -> ctypes.CDLL:
-    """The builder library, compiled on first use.  Raises OSError or
+    """The native library, compiled on first use.  Raises OSError or
     CalledProcessError when g++ is missing or fails."""
     global _lib
     with _lock:

@@ -121,3 +121,71 @@ def phong_lobe_sample(w, phong_exponent, seed):
         + v * (torch.sin(phi) * sin_theta)[..., None] \
         + w * cos_theta[..., None]
     return seed, normalize(d)
+
+
+def ggx_d(n_dot_h, alpha):
+    """GGX / Trowbridge-Reitz normal distribution D(h); alpha is the
+    squared perceptual roughness."""
+    a2 = alpha * alpha
+    c = n_dot_h * n_dot_h * (a2 - 1.0) + 1.0
+    return a2 / torch.clamp(PI * c * c, min=1e-12)
+
+
+def ggx_d_vec(normal, h, alpha):
+    """D(h) from the vectors, f32-stable at low roughness: sin^2 from the
+    cross product (the scalar form's ``(n.h)^2 (a^2 - 1) + 1`` cancels
+    when n.h -> 1), c = sin^2 + a^2 cos^2."""
+    cr = cross(normal, h)
+    sin2 = dot(cr, cr)
+    a2 = alpha * alpha
+    c = sin2 + a2 * torch.clamp(1.0 - sin2, min=0.0)
+    return a2 / torch.clamp(PI * c * c, min=1e-12)
+
+
+def ggx_g1(n_dot_x, alpha):
+    """Smith GGX masking term G1 for one direction (separable Smith:
+    G2(v, l) = G1(v) * G1(l)); below-horizon directions give 0."""
+    a2 = alpha * alpha
+    nx = torch.clamp(n_dot_x, min=0.0)
+    return 2.0 * nx / torch.clamp(
+        nx + torch.sqrt(a2 + (1.0 - a2) * nx * nx), min=1e-12)
+
+
+def ggx_vndf_sample_from_uniforms(view, normal, alpha, u1, u2):
+    """A GGX half-vector from the distribution of visible normals (Heitz,
+    JCGT 2018).  ``view`` points away from the surface, ``normal`` is the
+    face-forwarded shading normal, ``alpha`` the squared perceptual
+    roughness, ``u1``/``u2`` uniforms in [0, 1).  Returns the half-vector
+    in world space; the reflected direction's estimator weight is
+    F(h.v) * G1(n.l)."""
+    tu, tv = orthonormal_basis(normal)
+    vx = dot(view, tu)
+    vy = dot(view, tv)
+    vz = dot(view, normal)
+    # stretch the view vector into the hemisphere configuration
+    h = torch.stack([alpha * vx, alpha * vy, vz], -1)
+    h = h / torch.sqrt(torch.clamp(dot(h, h), min=1e-20))[..., None]
+    # orthonormal frame around the stretched view
+    lensq = h[..., 0] * h[..., 0] + h[..., 1] * h[..., 1]
+    inv_len = 1.0 / torch.sqrt(torch.clamp(lensq, min=1e-20))
+    ex = torch.tensor([1.0, 0.0, 0.0], dtype=h.dtype, device=h.device)
+    t1 = torch.where((lensq > 1e-16)[..., None],
+                     torch.stack([-h[..., 1] * inv_len, h[..., 0] * inv_len,
+                                  torch.zeros_like(inv_len)], -1),
+                     ex.expand_as(h))
+    t2 = cross(h, t1)
+    # disk sample warped toward the configuration's visible half
+    r = torch.sqrt(torch.clamp(u1, min=0.0))
+    phi = 2.0 * PI * u2
+    p1 = r * torch.cos(phi)
+    p2 = r * torch.sin(phi)
+    s = 0.5 * (1.0 + h[..., 2])
+    p2 = (1.0 - s) * torch.sqrt(torch.clamp(1.0 - p1 * p1, min=0.0)) + s * p2
+    pz = torch.sqrt(torch.clamp(1.0 - p1 * p1 - p2 * p2, min=0.0))
+    nh = p1[..., None] * t1 + p2[..., None] * t2 + pz[..., None] * h
+    # unstretch back to the ellipsoid
+    m = torch.stack([alpha * nh[..., 0], alpha * nh[..., 1],
+                     torch.clamp(nh[..., 2], min=0.0)], -1)
+    m = m / torch.sqrt(torch.clamp(dot(m, m), min=1e-20))[..., None]
+    # local -> world
+    return m[..., 0:1] * tu + m[..., 1:2] * tv + m[..., 2:3] * normal

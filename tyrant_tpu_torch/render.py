@@ -1,5 +1,8 @@
 """The wavefront render step, the port of ``tyrant_tpu/render.py`` for the
-main path (the reference estimator at the default static gates).
+main path (the reference estimator at the default static gates) and the
+loaded-scene materials: GGX conductors, rough glass, a per-triangle glass
+IOR, spectral dispersion and smooth vertex normals, in scenes with or
+without spheres.
 
 One :func:`render_step` tops up the fixed-size ray queue with camera rays
 (raygen), finds every ray's closest hit (extend), shades it with a BSDF
@@ -12,6 +15,13 @@ the accumulation kernel (``ops/kernels``); the rest is plain PyTorch.
 :class:`Renderer` also resolves the display image, optionally denoised
 with the guides of one AOV pass per pose (:func:`render_aovs`) and
 bloomed.
+
+Every material and scene term is gated in Python on the scene's flags
+(``SceneData.has_ggx``, ``has_rrefr``, ``has_var_ior``,
+``smooth_normals``, no spheres) and on ``cfg.dispersion``, as the JAX
+package gates them at trace time, so a scene without them issues the
+same device operations as the main path.  Every uniform is drawn in the
+JAX package's order, from the same streams.
 
 State lives in tensors on one device.  Unlike the JAX package, the step
 updates ``state.accum`` in place (the JAX Renderer donates its state).
@@ -35,10 +45,12 @@ from .ops.kernels.accum import accumulate_terminated, sentinel
 from .ops.kernels.traverse import (PacketTables, any_hit_packets,
                                    closest_hit_packets)
 from .ops.sampling import (concentric_sample_disk, cone_sample,
-                           cosine_hemisphere_sample, dot, normalize,
+                           cosine_hemisphere_sample, dot, ggx_d_vec, ggx_g1,
+                           ggx_vndf_sample_from_uniforms, normalize,
                            phong_lobe_sample, reflect, sphere_surface_sample)
 from .ops.tonemap import bloom, tonemap_image
-from .scene.scene import DIFF, LIGHT, PHONG, REFR, SPEC, Scene, SceneData
+from .scene.scene import (DIFF, GGX, LIGHT, PHONG, REFR, RREFR, SPEC, Scene,
+                          SceneData)
 
 PHONG_EXPONENT = 40.0
 _KEY_GRID = 8  # survivor-ordering spatial grid resolution
@@ -50,7 +62,7 @@ _PORTED_FIELDS = {"width", "height", "num_rays", "max_bounces", "epsilon",
                   "sky", "bvh", "focal_distance_scale", "raygen_order",
                   "tonemap", "exposure", "packet_kernel_mode", "denoise",
                   "denoise_iterations", "bloom_strength", "bloom_threshold",
-                  "bloom_radius"}
+                  "bloom_radius", "dispersion"}
 _IGNORED_SELECTORS = {"use_packet_kernel", "use_accum_kernel",
                       "adaptive_connect", "adaptive_connect_frac",
                       "fuse_step_chains", "use_kernel_normals"}
@@ -185,18 +197,29 @@ def _pick_wave(cfg: RenderConfig, stage: str) -> bool:
     and "auto".  The JAX package's per-stage "auto" table was set from TPU
     measurements; the port's "auto" stays mono on every stage until the
     H100's in-step numbers give it a per-stage table (ROADMAP Queue 1
-    item 14), which is what ``stage`` is for."""
+    item 15), which is what ``stage`` is for."""
     del stage  # every stage follows the mode alike for now
     return cfg.packet_kernel_mode in ("wave", "wave-unsafe")
 
 
+def sphere_pass(origin, direction, scene: SceneData):
+    """The closest sphere hit (t [N], sphere id [N] i32), VERY_FAR and -1
+    on a miss and on every ray of a scene without spheres."""
+    if scene.n_spheres == 0:
+        n = origin.shape[0]
+        return (torch.full((n,), VERY_FAR, dtype=origin.dtype,
+                           device=origin.device),
+                torch.full((n,), -1, dtype=torch.int32, device=origin.device))
+    return intersect_spheres(origin, direction, scene.sphere_center,
+                             scene.sphere_radius)
+
+
 def _intersect_scene(origin, direction, scene: SceneData,
                      tables: PacketTables, wave: bool = False):
-    """Spheres first, then the BVH seeded with the sphere distance (a
-    triangle wins only when closer by more than epsilon).  Returns
-    (t, identifier, is_triangle)."""
-    t_sph, sph_id = intersect_spheres(origin, direction, scene.sphere_center,
-                                      scene.sphere_radius)
+    """Spheres first (:func:`sphere_pass`), then the BVH seeded with the
+    sphere distance (a triangle wins only when closer by more than
+    epsilon).  Returns (t, identifier, is_triangle)."""
+    t_sph, sph_id = sphere_pass(origin, direction, scene)
     t, tri_id = closest_hit_packets(origin, direction, tables, t_init=t_sph,
                                     wave=wave)
     is_tri = tri_id >= 0
@@ -211,18 +234,54 @@ def _col(x):
     return x[:, None]
 
 
+def _smooth_normal(scene: SceneData, tid, p, normal_tri):
+    """The corner normals interpolated at the (pre-offset) hit point ``p``
+    from one tri_attr row: barycentrics from the dual basis with two dots,
+    then renormalised; triangles without usable corner normals (flag lane
+    25 off) keep ``normal_tri``."""
+    arow = scene.tri_attr[tid]  # [N, 32]
+    p_rel = p - arow[:, 0:3]
+    bu = dot(p_rel, arow[:, 3:6])
+    bv = dot(p_rel, arow[:, 6:9])
+    ns = arow[:, 16:19] + _col(bu) * arow[:, 19:22] + _col(bv) * arow[:, 22:25]
+    nlen = torch.sqrt(torch.clamp(dot(ns, ns), min=1e-20))
+    return torch.where(_col(arow[:, 25] > 0.5), ns / _col(nlen), normal_tri)
+
+
 def _shade_surface_fetch(scene: SceneData, o, ident, is_tri, hit):
     """Hit-surface data: sphere rows by index, triangle rows from the
-    tri_shade table.  Returns (is_sphere, srow, normal, refl_tri,
-    color_tri)."""
+    tri_shade table (and the tri_attr row under smooth normals).  Returns
+    (is_sphere, srow, normal, refl_tri, color_tri, rough_tri); rough_tri
+    is tri_shade lane 7 (roughness, or a REFR triangle's IOR)."""
     sid = torch.clamp(ident, 0, scene.sphere_table.shape[0] - 1).long()
     is_sphere = hit & ~is_tri
     srow = scene.sphere_table[sid]
     normal_sphere = (o - srow[:, 0:3]) / _col(srow[:, 3])
     tid = torch.clamp(ident, 0, scene.tri_shade.shape[0] - 1).long()
     trow = scene.tri_shade[tid]
-    normal = torch.where(_col(is_sphere), normal_sphere, trow[:, 0:3])
-    return is_sphere, srow, normal, trow[:, 3].to(torch.int32), trow[:, 4:7]
+    normal_tri = trow[:, 0:3]
+    if scene.smooth_normals:
+        normal_tri = _smooth_normal(scene, tid, o, normal_tri)
+    normal = torch.where(_col(is_sphere), normal_sphere, normal_tri)
+    return (is_sphere, srow, normal, trow[:, 3].to(torch.int32), trow[:, 4:7],
+            trow[:, 7])
+
+
+def _ggx_eval(normal, view, light_dir, alpha, f0):
+    """Single-scatter GGX BRDF value f(v, l), [n, 3]: ``view`` and
+    ``light_dir`` point away from the surface, ``f0`` is the conductor's
+    reflectance at normal incidence (the surface colour).  Separable Smith
+    G2 = G1(v) * G1(l), Schlick Fresnel."""
+    h = normalize(view + light_dir)
+    nv = dot(normal, view)
+    nl = dot(normal, light_dir)
+    hv = torch.clamp(dot(h, view), min=0.0)
+    d_term = ggx_d_vec(normal, h, alpha)
+    g_term = ggx_g1(nv, alpha) * ggx_g1(nl, alpha)
+    fres = f0 + (1.0 - f0) * _col(torch.pow(1.0 - hv, 5.0))
+    denom = torch.clamp(4.0 * torch.clamp(nv, min=0.0)
+                        * torch.clamp(nl, min=0.0), min=1e-8)
+    return fres * _col(d_term * g_term / denom)
 
 
 def _shade_emitter_hit(srow, hit, refl, last_spec_in, direct):
@@ -248,10 +307,17 @@ def _shade_nee_samples(scene: SceneData, sky_params: skymod.SkyParams,
     _, cs_u = rng.random_float(
         rng.seed_from(frame, rays["pixel"], slot, 0, 0xC0F1))
     choose_sun = cs_u < 0.5
-    li = max(scene.light_index, 0)
-    light_c = scene.sphere_center[li]
-    light_r = scene.sphere_radius[li]
-    light_e = scene.sphere_emission[li]
+    if scene.n_spheres == 0:
+        # no sphere and so no light: inert stand-ins keep the shapes and
+        # the draws (radius 1 avoids a masked /0); has_light is False
+        light_c = torch.zeros(3, dtype=o.dtype, device=o.device)
+        light_r = torch.ones((), dtype=o.dtype, device=o.device)
+        light_e = torch.zeros(3, dtype=o.dtype, device=o.device)
+    else:
+        li = max(scene.light_index, 0)
+        light_c = scene.sphere_center[li]
+        light_r = scene.sphere_radius[li]
+        light_e = scene.sphere_emission[li]
     seed, lp = sphere_surface_sample(light_c.expand(n, 3), light_r, seed)
     n_l = normalize(lp - light_c)
     area = 4.0 * PI * light_r * light_r
@@ -270,9 +336,10 @@ def _shade_nee_weights(cfg: RenderConfig, scene: SceneData,
                        sky_params: skymod.SkyParams, d, normal, direct, hit,
                        refl, sun_dir, sun_sample, sun_cos, choose_sun,
                        light_e, ldir, ldist, cos_surf, cos_light,
-                       solid_angle):
-    """DIFF and PHONG NEE estimators; returns the shadow-queue fields and
-    the reflection vector the PHONG bounce reuses."""
+                       solid_angle, ggx=None):
+    """DIFF and PHONG NEE estimators, and GGX's when ``ggx`` = (is_ggx,
+    alpha, f0) is given; returns the shadow-queue fields and the
+    reflection vector the PHONG bounce reuses."""
     eps = cfg.epsilon
     inv_p_sun = inv_p_light = 2.0  # 50/50 strategy coin
     has_light = scene.light_index >= 0
@@ -311,6 +378,24 @@ def _shade_nee_weights(cfg: RenderConfig, scene: SceneData,
     shadow_color = torch.where(
         _col(is_diff), torch.where(sun_c, diff_sun_color, diff_light_color),
         torch.where(sun_c, phong_sun_color, phong_light_color))
+    if ggx is not None:
+        # the same sun/light estimator shape with the microfacet BRDF
+        # evaluated toward each sample
+        is_ggx, ggx_alpha, f0 = ggx
+        view = -d
+        f_ggx_sun = _ggx_eval(normal, view, sun_sample, ggx_alpha, f0)
+        ggx_sun_color = inv_p_sun * direct * sun_radiance * f_ggx_sun \
+            * _col(sun_cos * c_spec)
+        ggx_sun_ok = choose_sun & (sun_cos > 0)
+        f_ggx_l = _ggx_eval(normal, view, ldir, ggx_alpha, f0)
+        ggx_light_color = light_e2 * nl_col * direct * f_ggx_l \
+            * _col(solid_angle * cos_surf)
+        ggx_light_ok = ~choose_sun & (cos_surf > 0) & (cos_light > 0) \
+            & has_light
+        shadow_ok = shadow_ok | (is_ggx & (ggx_sun_ok | ggx_light_ok))
+        shadow_color = torch.where(
+            _col(is_ggx), torch.where(sun_c, ggx_sun_color, ggx_light_color),
+            shadow_color)
     # sun shadows use the ShadowQueue default max distance
     shadow_maxd = torch.where(choose_sun, torch.full_like(ldist, VERY_FAR),
                               ldist)
@@ -318,11 +403,49 @@ def _shade_nee_weights(cfg: RenderConfig, scene: SceneData,
             is_diff, is_phong)
 
 
-def _shade_bounce(cfg: RenderConfig, rays, d, o, normal, direct, hit, refl,
+def _glass_eta(cfg: RenderConfig, scene: SceneData, rays, direct, hit,
+               refl, is_tri, rough_tri, frame, slot):
+    """The REFR index of refraction: the reference's 1.2, a REFR
+    triangle's own IOR under ``has_var_ior``, and under ``cfg.dispersion``
+    one wavelength channel per glass event.  Returns (eta, direct): eta a
+    float when neither applies, else an [N] tensor.
+
+    Dispersion: eta_c = eta * (1 + dispersion * (c - 1)) for c in {0:R,
+    1:G, 2:B}.  A polychromatic path meeting glass collapses to a random
+    channel (direct *= 3 * onehot(c), unbiased); a monochromatic path
+    keeps its channel.  The channel comes from a side stream, so the main
+    shade stream draws as without dispersion.  RREFR stays undispersed."""
+    eta = 1.2
+    if scene.has_var_ior:
+        eta = torch.where(is_tri & (refl == REFR), rough_tri,
+                          torch.full_like(rough_tri, 1.2))
+    if cfg.dispersion:
+        _, u_w = rng.random_float(
+            rng.seed_from(frame, rays["pixel"], slot, 0, 0xD15B))
+        pick = torch.clamp((u_w * 3.0).to(torch.int32), max=2)
+        pos = direct > 0
+        poly = (pos[:, 0].to(torch.int32) + pos[:, 1].to(torch.int32)
+                + pos[:, 2].to(torch.int32)) > 1
+        chan = torch.where(poly, pick,
+                           torch.argmax(direct, dim=1).to(torch.int32))
+        at_glass = hit & (refl == REFR)
+        eta_c = eta * (1.0 + cfg.dispersion * (chan.to(torch.float32) - 1.0))
+        eta = torch.where(at_glass, eta_c, eta)
+        onehot = (torch.arange(3, dtype=torch.int32, device=chan.device)[None]
+                  == chan[:, None]).to(direct.dtype)
+        direct = torch.where(_col(at_glass & poly), direct * 3.0 * onehot,
+                             direct)
+    return eta, direct
+
+
+def _shade_bounce(cfg: RenderConfig, scene: SceneData, rays, d, o, normal,
+                  direct, hit, refl, is_tri, is_sphere, srow, rough_tri,
                   outside, is_diff, is_phong, w_refl, obj_color, t_safe,
-                  seed):
+                  seed, frame, slot, ggx=None):
     """Bounce sampling: DIFF cosine hemisphere, SPEC mirror, REFR Fresnel/
-    TIR/Beer-Lambert, PHONG lobe with rejection.  Returns (seed, new_dir,
+    TIR/Beer-Lambert (per-triangle IOR, dispersion), PHONG lobe with
+    rejection, and under the scene's flags the GGX VNDF lobe (``ggx`` =
+    (is_ggx, alpha)) and RREFR rough glass.  Returns (seed, new_dir,
     direct, new_last_spec, origin_out)."""
     eps = cfg.epsilon
     seed, diff_dir = cosine_hemisphere_sample(normal, seed)
@@ -331,7 +454,8 @@ def _shade_bounce(cfg: RenderConfig, rays, d, o, normal, direct, hit, refl,
     spec_dir = reflect(d, normal)
 
     # REFR: Schlick Fresnel + TIR, the reference's reversed-IoR convention
-    eta = 1.2
+    eta, direct = _glass_eta(cfg, scene, rays, direct, hit, refl, is_tri,
+                             rough_tri, frame, slot)
     one = torch.ones_like(t_safe)
     n1 = torch.where(outside, one * eta, one)
     n2 = torch.where(outside, one, one * eta)
@@ -369,12 +493,74 @@ def _shade_bounce(cfg: RenderConfig, rays, d, o, normal, direct, hit, refl,
     new_dir = torch.where(_col(is_phong), phong_dir, new_dir)
     # LIGHT keeps its direction
 
+    if ggx is not None:
+        # VNDF-sampled half-vector from a side stream; the reflected
+        # direction's weight is F(h.v) * G1(n.l), zero below the horizon
+        is_ggx, ggx_alpha = ggx
+        gseed = rng.seed_from(frame, rays["pixel"], slot, 0, 0x66C5)
+        gseed, gu1 = rng.random_float(gseed)
+        _, gu2 = rng.random_float(gseed)
+        view = -d
+        ggx_h = ggx_vndf_sample_from_uniforms(view, normal, ggx_alpha,
+                                              gu1, gu2)
+        ggx_dir = reflect(d, ggx_h)
+        ggx_nl = dot(normal, ggx_dir)
+        ggx_hv = torch.clamp(dot(ggx_h, view), min=0.0)
+        ggx_f = obj_color + (1.0 - obj_color) * _col(torch.pow(1.0 - ggx_hv,
+                                                               5.0))
+        ggx_w = torch.where(_col(ggx_nl > eps),
+                            ggx_f * _col(ggx_g1(ggx_nl, ggx_alpha)),
+                            torch.zeros_like(ggx_f))
+        new_dir = torch.where(_col(is_ggx), ggx_dir, new_dir)
+        direct = direct * torch.where(_col(is_ggx), ggx_w,
+                                      torch.ones_like(ggx_w))
+
+    rr_transmit = None
+    if scene.has_rrefr:
+        # rough glass: the REFR Fresnel/TIR/refraction above through a
+        # VNDF-sampled microfacet h, with the REFR coin; either lobe's
+        # weight is G1(n.out), and a sideways sample gets 0.  Both lobes
+        # are delta-born (no NEE), like smooth glass.
+        is_rrefr = hit & (refl == RREFR)
+        rr_rough = torch.where(is_sphere, srow[:, 11], rough_tri)
+        rr_alpha = torch.clamp(rr_rough * rr_rough, 1e-4, 1.0)
+        rsd = rng.seed_from(frame, rays["pixel"], slot, 0, 0x4F61)
+        rsd, ru1 = rng.random_float(rsd)
+        _, ru2 = rng.random_float(rsd)
+        rr_h = ggx_vndf_sample_from_uniforms(-d, normal, rr_alpha, ru1, ru2)
+        cos_im = -dot(rr_h, d)
+        sin_t2m = nr * nr * (1.0 - cos_im * cos_im)
+        fres_m = torch.where(sin_t2m > 1.0, one, r0 + (1.0 - r0) * torch.pow(
+            torch.clamp(1.0 - cos_im, min=0.0), 5.0))
+        rr_reflects = fr < fres_m
+        cos_tm = torch.sqrt(torch.clamp(1.0 - sin_t2m, min=0.0))
+        rr_dir = torch.where(
+            _col(rr_reflects), reflect(d, rr_h),
+            _col(nr) * d + _col(nr * cos_im - cos_tm) * rr_h)
+        out_cos = dot(normal, rr_dir)
+        rr_valid = (cos_im > 0.0) & torch.where(rr_reflects, out_cos > eps,
+                                                out_cos < -eps)
+        rr_w = torch.where(rr_valid, ggx_g1(torch.abs(out_cos), rr_alpha),
+                           torch.zeros_like(out_cos))
+        new_dir = torch.where(_col(is_rrefr), rr_dir, new_dir)
+        direct = direct * torch.where(_col(is_rrefr), _col(rr_w),
+                                      torch.ones_like(direct))
+        direct = direct * torch.where(_col(is_rrefr & ~outside), beer,
+                                      torch.ones_like(beer))
+        rr_transmit = is_rrefr & ~rr_reflects
+
     new_last_spec = (hit & (refl == SPEC)) | (is_refr & refr_reflects)
+    if scene.has_rrefr:
+        new_last_spec = new_last_spec | is_rrefr
     zero = torch.zeros_like(normal)
     origin_out = o \
         + torch.where(_col(is_refr & ~refr_reflects), -2.0 * eps * normal,
                       zero) \
         + torch.where(_col(is_phong), eps * w_refl, zero)
+    if rr_transmit is not None:
+        # transmitted rough-glass rays start behind the surface, like REFR
+        origin_out = origin_out + torch.where(_col(rr_transmit),
+                                              -2.0 * eps * normal, zero)
     return seed, new_dir, direct, new_last_spec, origin_out
 
 
@@ -391,14 +577,22 @@ def _shade(cfg: RenderConfig, scene: SceneData, sky_params: skymod.SkyParams,
     t_safe = torch.where(hit, t, torch.zeros_like(t))
     o = rays["origin"] + d * _col(t_safe)
 
-    is_sphere, srow, normal, refl_tri, color_tri = _shade_surface_fetch(
-        scene, o, ident, is_tri, hit)
+    is_sphere, srow, normal, refl_tri, color_tri, rough_tri = \
+        _shade_surface_fetch(scene, o, ident, is_tri, hit)
     refl = torch.where(is_sphere, srow[:, 10].to(torch.int32), refl_tri)
     refl = torch.where(hit, refl, torch.full_like(refl, DIFF))
     obj_color = torch.where(_col(is_sphere), srow[:, 4:7], color_tri)
 
-    # throughput *= color for materials except REFR/LIGHT
+    # throughput *= color for materials except REFR/LIGHT (and RREFR,
+    # coloured by Beer-Lambert, and GGX, whose colour is its Fresnel F0)
     mul_mask = hit & (refl != REFR) & (refl != LIGHT)
+    if scene.has_rrefr:
+        mul_mask = mul_mask & (refl != RREFR)
+    ggx = None
+    if scene.has_ggx:
+        mul_mask = mul_mask & (refl != GGX)
+        ggx_rough = torch.where(is_sphere, srow[:, 11], rough_tri)
+        ggx = (hit & (refl == GGX), ggx_rough * ggx_rough)
     direct = rays["direct"] * torch.where(_col(mul_mask), obj_color,
                                           torch.ones_like(obj_color))
 
@@ -417,10 +611,12 @@ def _shade(cfg: RenderConfig, scene: SceneData, sky_params: skymod.SkyParams,
      is_phong) = _shade_nee_weights(
         cfg, scene, sky_params, d, normal, direct, hit, refl, sun_dir,
         sun_sample, sun_cos, choose_sun, light_e, ldir, ldist, cos_surf,
-        cos_light, solid_angle)
+        cos_light, solid_angle,
+        ggx=None if ggx is None else (*ggx, obj_color))
     seed, new_dir, direct, new_last_spec, origin_out = _shade_bounce(
-        cfg, rays, d, o, normal, direct, hit, refl, outside, is_diff,
-        is_phong, w_refl, obj_color, t_safe, seed)
+        cfg, scene, rays, d, o, normal, direct, hit, refl, is_tri, is_sphere,
+        srow, rough_tri, outside, is_diff, is_phong, w_refl, obj_color,
+        t_safe, seed, frame, slot, ggx=ggx)
 
     # Russian roulette
     p = torch.clamp(direct.amax(-1), max=1.0)
@@ -501,10 +697,13 @@ def render_aovs(scene: SceneData, camera: CameraParams, cfg: RenderConfig,
     is_sphere = hit & ~is_tri
     srow = scene.sphere_table[
         torch.clamp(ident, 0, scene.sphere_table.shape[0] - 1).long()]
-    trow = scene.tri_shade[
-        torch.clamp(ident, 0, scene.tri_shade.shape[0] - 1).long()]
+    tid = torch.clamp(ident, 0, scene.tri_shade.shape[0] - 1).long()
+    trow = scene.tri_shade[tid]
+    normal_tri = trow[:, 0:3]
+    if scene.smooth_normals:
+        normal_tri = _smooth_normal(scene, tid, hp, normal_tri)
     normal = torch.where(_col(is_sphere), (hp - srow[:, 0:3]) / srow[:, 3:4],
-                         trow[:, 0:3])
+                         normal_tri)
     normal = torch.where(_col(dot(normal, d) < 0), normal, -normal)
     normal = torch.where(_col(hit), normal, torch.zeros_like(normal))
     albedo = torch.where(_col(is_sphere), srow[:, 4:7], trow[:, 4:7])

@@ -1,18 +1,23 @@
-"""Scene container, the port of ``tyrant_tpu/scene/scene.py`` for the
-main path: analytic spheres plus one triangle mesh with optional
-per-triangle DIFF/SPEC/REFR/PHONG materials, at most one emissive sphere.
+"""Scene container, the port of ``tyrant_tpu/scene/scene.py``: analytic
+spheres plus one triangle mesh (or the flattened union of instanced
+meshes) loaded from PLY, OBJ/MTL, STL, glTF or a JSON description, with
+per-triangle DIFF/SPEC/REFR/PHONG/GGX/RREFR materials, a per-triangle
+glass IOR and smooth vertex normals.
 
-Host packing is the JAX package's numpy code, so every table equals the
-JAX one bit for bit.  Scene features the port does not implement yet
-(textures, smooth normals, environment maps, delta or triangle lights,
-GGX and rough glass, per-triangle IOR, several emissive spheres) raise
-ValueError instead of rendering something else.
+Host loading and packing are the JAX package's numpy code, so every
+table equals the JAX one bit for bit.  Scene features the port does not
+shade yet raise ValueError, naming them, when the scene is uploaded
+(:meth:`Scene.to_device`): textures and normal, roughness, alpha, blend
+and metal maps, emissive triangles, delta lights, environment maps and
+several emissive spheres.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import subprocess
+import sys
 from typing import Optional
 
 import numpy as np
@@ -20,10 +25,13 @@ import torch
 
 from ..config import BVHConfig
 from ..ops.traverse import LEAF_WIDTH, BVHDevice
+from . import ply
 from .bvh import BVHArrays, build_bvh, bvh_stats, pack_meta
 
-DIFF, SPEC, REFR, PHONG, LIGHT = 0, 1, 2, 3, 4
-PORTED_MATERIALS = (DIFF, SPEC, REFR, PHONG, LIGHT)
+DIFF, SPEC, REFR, PHONG, LIGHT, GGX = 0, 1, 2, 3, 4, 5
+# rough dielectric ("frosted glass"); ids 6/7 are the JAX package's
+# FOG/PASS shade pseudo-materials
+RREFR = 8
 
 
 @dataclasses.dataclass
@@ -34,7 +42,10 @@ class Spheres:
     radius: np.ndarray    # [S] f32
     color: np.ndarray     # [S, 3] f32
     emission: np.ndarray  # [S, 3] f32
-    refl: np.ndarray      # [S] i32
+    refl: np.ndarray      # [S] i32 (DIFF/SPEC/REFR/PHONG/LIGHT/GGX/RREFR)
+    # perceptual roughness for GGX/RREFR spheres (alpha = roughness^2);
+    # None -> 0.3 everywhere
+    roughness: Optional[np.ndarray] = None  # [S] f32
 
     @classmethod
     def default_seven(cls) -> "Spheres":
@@ -62,13 +73,92 @@ class Spheres:
         return self.center.shape[0]
 
 
+# Delta-light kinds
+DL_POINT, DL_SPOT, DL_DIRECTIONAL = 0, 1, 2
+
+
+@dataclasses.dataclass
+class DeltaLights:
+    """Zero-area analytic lights: point / spot / directional (the host
+    record the glTF and JSON loaders return; the port does not shade them
+    yet, so a scene with any is refused when it is uploaded).
+
+    ``intensity`` is radiant intensity (W/sr) for point/spot lights and
+    irradiance on a perpendicular surface for directional lights;
+    ``direction`` points FROM the light INTO the scene.
+    """
+
+    kind: np.ndarray       # [L] i32 (DL_POINT/DL_SPOT/DL_DIRECTIONAL)
+    position: np.ndarray   # [L, 3] f32 (unused for directional)
+    direction: np.ndarray  # [L, 3] f32 (unused for point)
+    intensity: np.ndarray  # [L, 3] f32
+    cos_inner: np.ndarray  # [L] f32 (spot cone; 1.0 elsewhere)
+    cos_outer: np.ndarray  # [L] f32
+
+    @property
+    def count(self):
+        return int(self.kind.shape[0])
+
+    @classmethod
+    def from_specs(cls, specs) -> "DeltaLights":
+        """Build from a list of dicts (the JSON scene-description form):
+        ``{"type": "point"|"spot"|"directional", "position": [x,y,z],
+        "direction": [x,y,z], "intensity": [r,g,b], "inner_deg": a,
+        "outer_deg": b}``."""
+        kinds, pos, dirs, inten, ci, co = [], [], [], [], [], []
+        names = {"point": DL_POINT, "spot": DL_SPOT,
+                 "directional": DL_DIRECTIONAL}
+        for s in specs:
+            t = s["type"]
+            if t not in names:
+                raise ValueError(f"unknown delta light type {t!r}")
+            k = names[t]
+            kinds.append(k)
+            if k != DL_DIRECTIONAL and "position" not in s:
+                raise ValueError(f"{t} light requires a position")
+            if k != DL_POINT and "direction" not in s:
+                raise ValueError(f"{t} light requires a direction")
+            pos.append(s.get("position", (0.0, 0.0, 0.0)))
+            d = np.asarray(s.get("direction", (0.0, 0.0, -1.0)), np.float64)
+            n = np.linalg.norm(d)
+            if k != DL_POINT and n < 1e-12:
+                raise ValueError(f"{t} light direction must be non-zero")
+            dirs.append(d / max(n, 1e-12))
+            inten.append(s.get("intensity", (1.0, 1.0, 1.0)))
+            if k == DL_SPOT:
+                outer = float(s.get("outer_deg", 30.0))
+                inner = float(s.get("inner_deg", outer))
+                if not 0.0 < outer <= 90.0 or inner > outer:
+                    raise ValueError(
+                        "spot cone needs 0 < inner_deg <= outer_deg <= 90")
+                ci.append(np.cos(np.radians(inner)))
+                co.append(np.cos(np.radians(outer)))
+            else:
+                ci.append(1.0)
+                co.append(1.0)
+        return cls(kind=np.asarray(kinds, np.int32),
+                   position=np.asarray(pos, np.float32).reshape(-1, 3),
+                   direction=np.asarray(dirs, np.float32).reshape(-1, 3),
+                   intensity=np.asarray(inten, np.float32).reshape(-1, 3),
+                   cos_inner=np.asarray(ci, np.float32),
+                   cos_outer=np.asarray(co, np.float32))
+
+
 @dataclasses.dataclass
 class SceneData:
     """Device-resident scene tables read by the render step.
 
-    tri_shade [T+pad, 8]: geometric normal.xyz, refl, color.rgb, roughness
-    sphere_table [S, 12]: center.xyz, radius, color.rgb, emission.rgb,
-        refl, roughness
+    tri_shade [T+pad, 8]: geometric normal.xyz, refl, color.rgb, lane 7
+        (GGX/RREFR perceptual roughness, or a REFR triangle's IOR)
+    sphere_table [max(S, 1), 12]: center.xyz, radius, color.rgb,
+        emission.rgb, refl, roughness (one inert row when S = 0)
+    tri_attr [T+pad, 32] with smooth normals, else [4, 32] zeros:
+        v0.xyz, s1.xyz, s2.xyz (the dual basis of the edges: barycentrics
+        from the hit point with two dots), lanes 9:16 texture slots,
+        n0.xyz, dn1.xyz, dn2.xyz, smooth flag, lanes 26:32 map slots
+
+    The flags are host booleans; the render step gates each term on them
+    in Python, so a scene without a feature issues no op for it.
     """
 
     bvh: BVHDevice
@@ -77,23 +167,21 @@ class SceneData:
     sphere_emission: torch.Tensor  # [S, 3]
     light_index: int               # the one emissive sphere, or -1
     tri_shade: torch.Tensor        # [T+pad, 8] (leaf order)
-    sphere_table: torch.Tensor     # [S, 12]
+    sphere_table: torch.Tensor     # [max(S, 1), 12]
+    tri_attr: torch.Tensor         # [T+pad, 32] or [4, 32]
+    smooth_normals: bool = False
+    has_ggx: bool = False
+    has_rrefr: bool = False
+    has_var_ior: bool = False
 
-
-def _spheres_ok(s: Spheres) -> None:
-    if s.count == 0:
-        raise ValueError("a scene without spheres is not ported")
-    bad = sorted(set(int(r) for r in s.refl) - set(PORTED_MATERIALS))
-    if bad:
-        raise ValueError(f"sphere materials {bad} (GGX/RREFR) are not ported")
-    if int((s.refl == LIGHT).sum()) > 1:
-        raise ValueError("several emissive spheres: multi-light NEE is not "
-                         "ported")
+    @property
+    def n_spheres(self) -> int:
+        return int(self.sphere_center.shape[0])
 
 
 @dataclasses.dataclass
 class Scene:
-    """Host-side scene: build and upload."""
+    """Host-side scene: load, build, upload."""
 
     spheres: Spheres
     tri_vert: np.ndarray  # [T, 3] (original order)
@@ -103,39 +191,83 @@ class Scene:
     stats: dict
     tri_refl: Optional[np.ndarray] = None   # [T] i32, default DIFF
     tri_color: Optional[np.ndarray] = None  # [T, 3] f32, default white
+    tri_uv: Optional[np.ndarray] = None     # [T, 3, 2] per-corner texcoords
+    tri_tex: Optional[np.ndarray] = None    # [T] i32 texture id, -1 = none
+    textures: Optional[list] = None         # list of [H, W, 3] f32 linear
+    tri_vn: Optional[np.ndarray] = None     # [T, 3, 3] per-corner normals
+    envmap: Optional[np.ndarray] = None     # [H, W, 3] equirect radiance
+    tri_rough: Optional[np.ndarray] = None  # [T] f32 GGX roughness
+    tri_ntex: Optional[np.ndarray] = None   # [T] i32 normal-map id, -1=none
+    tri_rtex: Optional[np.ndarray] = None   # [T] i32 rough-map id, -1=none
+    tri_blend: Optional[np.ndarray] = None  # [T] bool stochastic alpha BLEND
+    tri_metal: Optional[np.ndarray] = None  # [T] bool per-texel metalness
+    tri_ior: Optional[np.ndarray] = None    # [T] f32 glass IOR (REFR tris)
+    # per-texture (wrap_s, wrap_t) parallel to ``textures``
+    texture_wraps: Optional[list] = None
+    delta_lights: Optional[DeltaLights] = None  # point/spot/directional
 
     @classmethod
     def load(cls, path: Optional[str] = None,
-             spheres: Optional[Spheres] = None, **unported) -> "Scene":
-        """``path=None``: a spheres-only scene.  Mesh files, environment
-        maps and delta lights are not ported."""
-        if path is not None:
-            raise ValueError("Scene.load: mesh files are not ported; build "
-                             "the mesh with Scene.from_triangles")
-        _refuse(unported)
+             spheres: Optional[Spheres] = None,
+             bvh_cfg: BVHConfig = BVHConfig(),
+             scale: float = 1.0,
+             builder: str = "auto",
+             envmap=None,
+             delta_lights: Optional[DeltaLights] = None) -> "Scene":
+        """Load a mesh file (.ply, .obj with its .mtl, .stl, .glb/.gltf)
+        plus spheres and build the BVH; a ``.json`` path is a scene
+        description (``description.load_description``), whose scene this
+        returns.  ``path=None`` gives a spheres-only scene, and a missing
+        file a scene without primitives and a warning.
+        builder: "auto" (native C++ if it builds), "numpy" or "native"."""
+        if path is not None and path.endswith(".json"):
+            from .description import load_description
+            sc = load_description(path, builder=builder,
+                                  bvh_cfg=bvh_cfg).scene
+            return _override(sc, spheres, envmap, delta_lights)
+        if path is not None and path.endswith((".glb", ".gltf")):
+            from .gltf import load_gltf_bundle
+            sc = load_gltf_bundle(path, builder=builder, scale=scale,
+                                  bvh_cfg=bvh_cfg).scene
+            return _override(sc, spheres, envmap, delta_lights)
         spheres = spheres or Spheres.default_seven()
-        _spheres_ok(spheres)
-        z = np.zeros((0, 3), np.float32)
-        return cls(spheres, z, z, z, None, {"nodes": 0})
+        if isinstance(envmap, str):
+            from .texture import load_texture
+            envmap = load_texture(envmap)
+        if path is not None and not os.path.exists(path):
+            print(f"warning: scene file {path!r} not found; "
+                  "loading scene without mesh primitives", file=sys.stderr)
+            path = None
+        if path is None:
+            z = np.zeros((0, 3), np.float32)
+            return cls(spheres, z, z, z, None, {"nodes": 0}, envmap=envmap,
+                       delta_lights=delta_lights)
+
+        from .instancing import MeshAsset
+        m = MeshAsset.load(path, scale=scale)
+        s = cls.from_triangles(
+            m.v0, m.v1, m.v2, spheres=spheres, bvh_cfg=bvh_cfg,
+            builder=builder, tri_refl=m.tri_refl, tri_color=m.tri_color,
+            tri_uv=m.tri_uv, tri_tex=m.tri_tex, textures=m.textures,
+            tri_vn=m.tri_vn, envmap=envmap, tri_rough=m.tri_rough,
+            tri_ntex=m.tri_ntex, tri_rtex=m.tri_rtex, tri_blend=m.tri_blend,
+            tri_metal=m.tri_metal, delta_lights=delta_lights)
+        return s
 
     @classmethod
     def from_triangles(cls, v0, v1, v2, spheres: Optional[Spheres] = None,
                        bvh_cfg: BVHConfig = BVHConfig(),
-                       builder: str = "auto", tri_refl=None, tri_color=None,
-                       **unported) -> "Scene":
-        """Build from triangle vertices [T, 3] each.  tri_refl [T]
-        (DIFF/SPEC/REFR/PHONG) and tri_color [T, 3] are optional
-        per-triangle materials (default: white diffuse)."""
-        _refuse(unported)
+                       builder: str = "auto",
+                       tri_refl=None, tri_color=None,
+                       tri_uv=None, tri_tex=None, textures=None,
+                       tri_vn=None, envmap=None, tri_rough=None,
+                       tri_ntex=None, tri_rtex=None, tri_blend=None,
+                       tri_metal=None, tri_ior=None, texture_wraps=None,
+                       delta_lights: Optional[DeltaLights] = None) -> "Scene":
+        """Build from triangle vertices [T, 3] each, with optional
+        per-triangle materials (default: white diffuse), roughness, IOR,
+        corner normals [T, 3, 3] and the texture records of the loaders."""
         spheres = spheres or Spheres.default_seven()
-        _spheres_ok(spheres)
-        if tri_refl is not None:
-            tri_refl = np.asarray(tri_refl, np.int32)
-            bad = sorted(set(np.unique(tri_refl).tolist())
-                         - {DIFF, SPEC, REFR, PHONG})
-            if bad:
-                raise ValueError(f"triangle materials {bad} (emissive "
-                                 "triangles, GGX, RREFR) are not ported")
         v0 = np.asarray(v0, np.float32)
         v1 = np.asarray(v1, np.float32)
         v2 = np.asarray(v2, np.float32)
@@ -144,13 +276,95 @@ class Scene:
         bvh = _build(tri_lo, tri_hi, bvh_cfg, builder)
         stats = bvh_stats(bvh)
         stats["triangles"] = int(v0.shape[0])
+
+        def arr(a, dtype):
+            return None if a is None else np.asarray(a, dtype)
         return cls(spheres, v0, v1 - v0, v2 - v0, bvh, stats,
-                   tri_refl=tri_refl,
-                   tri_color=None if tri_color is None
-                   else np.asarray(tri_color, np.float32))
+                   tri_refl=arr(tri_refl, np.int32),
+                   tri_color=arr(tri_color, np.float32),
+                   tri_uv=arr(tri_uv, np.float32),
+                   tri_tex=arr(tri_tex, np.int32), textures=textures,
+                   tri_vn=arr(tri_vn, np.float32), envmap=envmap,
+                   tri_rough=arr(tri_rough, np.float32),
+                   tri_blend=arr(tri_blend, bool),
+                   tri_metal=arr(tri_metal, bool),
+                   tri_ior=arr(tri_ior, np.float32),
+                   texture_wraps=texture_wraps,
+                   tri_ntex=arr(tri_ntex, np.int32),
+                   tri_rtex=arr(tri_rtex, np.int32),
+                   delta_lights=delta_lights)
+
+    @classmethod
+    def from_instances(cls, meshes, instances,
+                       spheres: Optional[Spheres] = None,
+                       bvh_cfg: BVHConfig = BVHConfig(),
+                       builder: str = "auto", envmap=None,
+                       delta_lights: Optional[DeltaLights] = None) -> "Scene":
+        """Instanced scene: ``meshes`` are ``instancing.MeshAsset`` (or
+        paths, loaded with ``MeshAsset.load``), ``instances`` a list of
+        ``(mesh_id, transform)`` with a [4,4] or [3,4] affine transform.
+        Instances are flattened into world space and one BVH is built
+        over the union."""
+        from .instancing import MeshAsset, flatten_instances
+        meshes = [MeshAsset.load(m) if isinstance(m, str) else m
+                  for m in meshes]
+        flat = flatten_instances(meshes, instances)
+        s = cls.from_triangles(
+            flat.v0, flat.v1, flat.v2, spheres=spheres, bvh_cfg=bvh_cfg,
+            builder=builder, tri_refl=flat.tri_refl,
+            tri_color=flat.tri_color, tri_uv=flat.tri_uv,
+            tri_tex=flat.tri_tex, textures=flat.textures,
+            tri_vn=flat.tri_vn, envmap=envmap, tri_rough=flat.tri_rough,
+            tri_ntex=flat.tri_ntex, tri_rtex=flat.tri_rtex,
+            tri_blend=flat.tri_blend, tri_metal=flat.tri_metal,
+            tri_ior=flat.tri_ior, texture_wraps=flat.tex_wraps,
+            delta_lights=delta_lights)
+        s.stats["instances"] = len(instances)
+        s.stats["unique_meshes"] = len(meshes)
+        return s
+
+    def unported(self) -> list[str]:
+        """Names of the scene's features the port does not shade; empty
+        when the scene can be uploaded.  A feature counts when the JAX
+        package would shade it (an unused texture list does not)."""
+        mesh = self.bvh is not None
+        has_atlas = (self.textures is not None and len(self.textures) > 0
+                     and self.tri_uv is not None and mesh)
+
+        def used(ids):
+            return has_atlas and ids is not None \
+                and bool((np.asarray(ids) >= 0).any())
+
+        def flagged(mask, where=True):
+            return mask is not None and bool((np.asarray(mask) & where).any())
+        refl = None if self.tri_refl is None else np.asarray(self.tri_refl)
+        has_tex, has_rmap = used(self.tri_tex), used(self.tri_rtex)
+        has_alpha = has_tex and any(
+            im.shape[2] >= 4 and bool((np.asarray(im[:, :, 3]) < 1.0).any())
+            for im in self.textures)
+        named = (
+            ("textures", has_tex),
+            ("alpha maps", has_alpha),
+            ("blend", has_alpha and flagged(self.tri_blend)),
+            ("normal maps", used(self.tri_ntex)),
+            ("roughness maps", has_rmap),
+            ("metal maps", has_rmap and refl is not None
+             and flagged(self.tri_metal, refl == GGX)),
+            ("emissive triangles", mesh and refl is not None
+             and bool((refl == LIGHT).any())),
+            ("delta lights", self.delta_lights is not None
+             and self.delta_lights.count > 0),
+            ("environment maps", self.envmap is not None),
+            ("several emissive spheres",
+             int((self.spheres.refl == LIGHT).sum()) > 1))
+        return [name for name, present in named if present]
 
     def to_device(self, device) -> SceneData:
-        """Upload the tables to ``device``."""
+        """Upload the tables to ``device``.  Raises ValueError naming the
+        scene features the port does not shade (:meth:`unported`)."""
+        bad = self.unported()
+        if bad:
+            raise ValueError(f"scene features not ported: {', '.join(bad)}")
         if self.bvh is None:
             # spheres-only: single degenerate leaf, so traversal is a no-op
             meta = pack_meta(np.zeros(1, np.int64), np.ones(1, np.int64),
@@ -166,6 +380,7 @@ class Scene:
                 np.zeros((1, 9 * LEAF_WIDTH), np.float32), device)
             tri_refl = np.zeros(4, np.int32)
             tri_color = np.ones((4, 3), np.float32)
+            tri_rough = np.full(4, 0.3, np.float32)
         else:
             bvh_dev = BVHDevice.from_host(self.bvh, self.tri_vert,
                                           self.tri_e1, self.tri_e2, device)
@@ -175,9 +390,12 @@ class Scene:
                     else self.tri_refl)[perm]
             color = (np.ones((t, 3), np.float32) if self.tri_color is None
                      else self.tri_color)[perm]
+            rough = (np.full(t, 0.3, np.float32) if self.tri_rough is None
+                     else np.asarray(self.tri_rough, np.float32))[perm]
             pad = bvh_dev.tri_packed.shape[0] - t
             tri_refl = np.concatenate([refl, np.zeros(pad, np.int32)])
             tri_color = np.concatenate([color, np.ones((pad, 3), np.float32)])
+            tri_rough = np.concatenate([rough, np.full(pad, 0.3, np.float32)])
 
         tp = bvh_dev.tri_packed.cpu().numpy()
         cross = np.cross(tp[:, 3:6], tp[:, 6:9])
@@ -188,7 +406,23 @@ class Scene:
         tri_shade[:, 0:3] = normal
         tri_shade[:, 3] = tri_refl.astype(np.float32)
         tri_shade[:, 4:7] = tri_color
-        tri_shade[:, 7] = 0.3  # GGX roughness lane, unread by ported BSDFs
+        # GGX perceptual roughness, clamped: alpha -> 0 degenerates D(h)
+        tri_shade[:, 7] = np.clip(tri_rough, 0.03, 1.0)
+        # REFR triangles reuse lane 7 for their glass IOR
+        has_var_ior = False
+        if self.tri_ior is not None and self.bvh is not None:
+            ior_p = np.full(tp.shape[0], 1.2, np.float32)
+            ti = np.asarray(self.tri_ior, np.float32)[self.bvh.perm]
+            ior_p[:ti.shape[0]] = ti
+            is_rf = tri_refl == REFR
+            tri_shade[is_rf, 7] = ior_p[is_rf]
+            has_var_ior = bool((is_rf & (np.abs(ior_p - 1.2) > 1e-6)).any())
+
+        has_smooth = self.tri_vn is not None and self.bvh is not None
+        if has_smooth:
+            tri_attr = self._attr_rows(tp.shape[0])
+        else:
+            tri_attr = np.zeros((4, 32), np.float32)
 
         s = self.spheres
         sphere_table = np.zeros((s.count, 12), np.float32)
@@ -197,28 +431,126 @@ class Scene:
         sphere_table[:, 4:7] = s.color
         sphere_table[:, 7:10] = s.emission
         sphere_table[:, 10] = s.refl.astype(np.float32)
-        sphere_table[:, 11] = 0.3  # GGX roughness lane, as for triangles
-        return scene_data(bvh_dev, tri_shade, sphere_table, device)
+        sphere_table[:, 11] = np.clip(
+            np.full(s.count, 0.3, np.float32) if s.roughness is None
+            else np.asarray(s.roughness, np.float32), 0.03, 1.0)
+        if s.count == 0:
+            # zero-sphere scene: one inert row, so the shade fetch's
+            # clamped index stays in range (radius 1 avoids a masked /0)
+            sphere_table = np.zeros((1, 12), np.float32)
+            sphere_table[0, 3] = 1.0
+            sphere_table[0, 11] = 0.3
+        return scene_data(
+            bvh_dev, tri_shade, sphere_table, device, n_spheres=s.count,
+            tri_attr=tri_attr, smooth_normals=has_smooth,
+            has_ggx=bool((s.refl == GGX).any() or (tri_refl == GGX).any()),
+            has_rrefr=bool((s.refl == RREFR).any()
+                           or (tri_refl == RREFR).any()),
+            has_var_ior=has_var_ior)
+
+    def _attr_rows(self, rows: int) -> np.ndarray:
+        """tri_attr [rows, 32] for smooth normals: the dual basis of the
+        edges and the corner normals in leaf order; the texture and map
+        lanes keep their empty values (ids -1)."""
+        perm = self.bvh.perm
+        e1 = self.tri_e1[perm].astype(np.float64)
+        e2 = self.tri_e2[perm].astype(np.float64)
+        d11 = np.sum(e1 * e1, axis=1)
+        d22 = np.sum(e2 * e2, axis=1)
+        d12 = np.sum(e1 * e2, axis=1)
+        det = np.maximum(d11 * d22 - d12 * d12, 1e-30)
+        s1 = (d22[:, None] * e1 - d12[:, None] * e2) / det[:, None]
+        s2 = (d11[:, None] * e2 - d12[:, None] * e1) / det[:, None]
+        t = self.tri_vert.shape[0]
+        attr = np.zeros((rows, 32), np.float32)
+        attr[:t, 0:3] = self.tri_vert[perm]
+        attr[:t, 3:6] = s1
+        attr[:t, 6:9] = s2
+        attr[:, 15] = -1.0
+        attr[:, 26] = -1.0
+        attr[:, 31] = -1.0
+        vn = np.asarray(self.tri_vn, np.float32)[perm]  # [T, 3, 3]
+        ok = (np.linalg.norm(vn, axis=2) > 1e-8).all(axis=1)
+        attr[:t, 16:19] = vn[:, 0]
+        attr[:t, 19:22] = vn[:, 1] - vn[:, 0]
+        attr[:t, 22:25] = vn[:, 2] - vn[:, 0]
+        attr[:t, 25] = ok.astype(np.float32)
+        return attr
 
 
-def scene_data(bvh: BVHDevice, tri_shade, sphere_table,
-               device) -> SceneData:
+def scene_data(bvh: BVHDevice, tri_shade, sphere_table, device, *,
+               n_spheres: int, tri_attr=None, smooth_normals: bool = False,
+               has_ggx: bool = False, has_rrefr: bool = False,
+               has_var_ior: bool = False) -> SceneData:
     """SceneData from the numpy shade tables (shared by Scene.to_device and
-    interop); the sphere columns are views of sphere_table."""
+    interop).  The sphere columns are the first ``n_spheres`` rows of
+    sphere_table (a zero-sphere scene keeps one inert row there)."""
     def t(a):
         return torch.as_tensor(np.array(a, np.float32), device=device)
     st = np.asarray(sphere_table, np.float32)
-    lights = np.nonzero(st[:, 10] == LIGHT)[0]
-    return SceneData(bvh=bvh, sphere_center=t(st[:, 0:3]),
-                     sphere_radius=t(st[:, 3]), sphere_emission=t(st[:, 7:10]),
+    live = st[:n_spheres]
+    lights = np.nonzero(live[:, 10] == LIGHT)[0]
+    if tri_attr is None:
+        tri_attr = np.zeros((4, 32), np.float32)
+    return SceneData(bvh=bvh, sphere_center=t(live[:, 0:3]),
+                     sphere_radius=t(live[:, 3]),
+                     sphere_emission=t(live[:, 7:10]),
                      light_index=int(lights[0]) if lights.size else -1,
-                     tri_shade=t(tri_shade), sphere_table=t(st))
+                     tri_shade=t(tri_shade), sphere_table=t(st),
+                     tri_attr=t(tri_attr), smooth_normals=smooth_normals,
+                     has_ggx=has_ggx, has_rrefr=has_rrefr,
+                     has_var_ior=has_var_ior)
 
 
-def _refuse(unported: dict) -> None:
-    given = sorted(k for k, v in unported.items() if v is not None)
-    if given:
-        raise ValueError(f"scene features not ported: {', '.join(given)}")
+def _override(sc: Scene, spheres, envmap, delta_lights) -> Scene:
+    """The caller's spheres, envmap and delta lights replace a composed
+    scene's own (glTF and JSON files carry theirs)."""
+    if isinstance(envmap, str):
+        from .texture import load_texture
+        envmap = load_texture(envmap)
+    if envmap is not None:
+        sc.envmap = envmap
+    if spheres is not None:
+        sc.spheres = spheres
+    if delta_lights is not None:
+        sc.delta_lights = delta_lights
+    return sc
+
+
+def _ply_has_attrs(path: str) -> bool:
+    """Header sniff: vertex normals OR colors (either routes the load
+    through the python attribute loader instead of the native fast path)."""
+    try:
+        with open(path, "rb") as f:
+            head = f.read(4096)
+        head = head[:head.find(b"end_header") + 1 or None]
+        return b" nx" in head or b" red" in head
+    except OSError:
+        return False
+
+
+# what a missing or failing g++ raises (the native library cannot build or
+# load); the Python loader and builder then give the same result
+_NATIVE_UNAVAILABLE = (OSError, subprocess.CalledProcessError)
+
+
+def load_mesh(path: str):
+    """(vertices [V, 3] f32, faces [F, 3] i32) of a .ply, .obj or .stl
+    file.  A PLY goes through the native loader when it builds; a file
+    the native loader rejects raises its ValueError."""
+    if path.endswith(".ply"):
+        try:
+            from ..native import ply_native
+            return ply_native.load_ply(path)
+        except _NATIVE_UNAVAILABLE:
+            return ply.load_ply(path)
+    if path.endswith(".obj"):
+        from .obj import load_obj
+        return load_obj(path)
+    if path.endswith(".stl"):
+        from .stl import load_stl
+        return load_stl(path)
+    raise ValueError(f"unsupported mesh format: {path}")
 
 
 def _build(tri_lo, tri_hi, cfg: BVHConfig, builder: str) -> BVHArrays:
@@ -226,7 +558,7 @@ def _build(tri_lo, tri_hi, cfg: BVHConfig, builder: str) -> BVHArrays:
         try:
             from ..native import bvh_native
             return bvh_native.build_bvh(tri_lo, tri_hi, cfg)
-        except (OSError, RuntimeError, subprocess.CalledProcessError):
+        except (RuntimeError, *_NATIVE_UNAVAILABLE):
             # no compiler or loader for the native builder: numpy builds
             # the same tree
             if builder == "native":
