@@ -17,6 +17,19 @@ with each traversal-kernel generation (``packet_kernel_mode`` "mono" and
 bloom) at full size, compares small renders on the card with the same
 renders on the CPU, and times the three poses with the pose harness.
 
+It then captures the main cell's step as a CUDA graph
+(``fuse_step_chains="auto"``): bit for bit the eager step after six
+steps with a pose and a sun change between, phase 3 replayed (device
+busy and idle share), a graph of one step against a chain of four; the
+display path captured (``image()`` bit for bit the eager one); the normals
+output of both traversal kernels on the interactive preset's extend queue
+(bit for bit the plain version, t and ids unchanged, timed against
+``normals=False``); and the interactive fly-through
+(``bench/interactive.py``) at the preset's 1920x1080 and 131,072 rays,
+40 moving and 40 still frames, with kernel normals and capture each on
+and off and the wave kernel: ms a frame, FPS, device busy and idle, the
+shade stage from an eager trace, replays counted.
+
 Then two scenes loaded from files it writes into ``build/chip_smoke/scene``
 (no download): a JSON description that places the terrain, as a binary PLY
 with vertex normals, and instances of an OBJ/MTL asset as a GGX conductor,
@@ -56,15 +69,17 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from tyrant_tpu_torch import native  # noqa: E402
 from tyrant_tpu_torch import render as tr  # noqa: E402
-from tyrant_tpu_torch.bench import equivalence  # noqa: E402
+from tyrant_tpu_torch.bench import equivalence, interactive  # noqa: E402
 from tyrant_tpu_torch.bench.harness import (results_to_dict,  # noqa: E402
                                             run_benchmark)
 from tyrant_tpu_torch.bench.poses import camera_for_pose, mrays_per_s  # noqa: E402
 from tyrant_tpu_torch.config import (EPSILON, VERY_FAR,  # noqa: E402
-                                     RenderConfig, small_config)
+                                     RenderConfig, interactive_config,
+                                     small_config)
 from tyrant_tpu_torch.denoise import atrous_denoise  # noqa: E402
 from tyrant_tpu_torch.ops import stream as plain_stream  # noqa: E402
 from tyrant_tpu_torch.ops import traverse as plain_trav  # noqa: E402
+from tyrant_tpu_torch.ops import kernels  # noqa: E402
 from tyrant_tpu_torch.ops.kernels import accum as kacc  # noqa: E402
 from tyrant_tpu_torch.ops.kernels import build  # noqa: E402
 from tyrant_tpu_torch.ops.kernels import stream as kstream  # noqa: E402
@@ -269,6 +284,8 @@ def phase0() -> float:
     t = time.perf_counter() - t0
     log(f"kernel build+load {t:.2f} s (nvcc {build.build_seconds} s) -> "
         f"{build.library_path().relative_to(build.BUILD_DIR.parents[1])}")
+    log("registers a thread and spill bytes (ptxas --resource-usage): "
+        f"{build.registers()}")
     # the native host library (BVH builder, PLY loader): built here, so a
     # failing g++ stops the run instead of leaving the Python builder and
     # loader to stand in
@@ -690,32 +707,72 @@ def stage_split(trace_path: Path, steps: int) -> tuple[dict, float, dict]:
             busy / 1e3 / steps, {k: v / steps for k, v in ops.items()})
 
 
-def reset_launches() -> None:
-    ktrav.launches = ktrav.launches_wave = kacc.launches = 0
-    kstream.launches = 0
+LAUNCH_KEYS = ("traverse", "traverse_wave", "accumulate", "stream")
+NORMALS_KEYS = ("traverse_normals", "traverse_wave_normals")
 
 
-def read_launches() -> dict:
-    return {"traverse": ktrav.launches, "traverse_wave": ktrav.launches_wave,
-            "accumulate": kacc.launches, "stream": kstream.launches}
+def reset_launches(*renderers) -> None:
+    """Every wrapper's launch counter to 0, and the replay counts of the
+    captured ``renderers``."""
+    kernels.set_launch_counts(dict.fromkeys(kernels.launch_counts(), 0))
+    for ren in renderers:
+        ren.replayed_steps = 0
+        ren.replayed_launches.clear()
+
+
+def read_launches(*renderers, keys=LAUNCH_KEYS) -> dict:
+    """The kernel launches since the reset: the wrappers' counters (their
+    eager launches) plus the launches that the ``renderers``' graph
+    replays made (a replay adds nothing to the counters)."""
+    counts = kernels.launch_counts()
+    return {k: counts[k] + sum(ren.replayed_launches.get(k, 0)
+                               for ren in renderers) for k in keys}
+
+
+def device_busy(trace_path: Path, steps: int) -> tuple[float, float]:
+    """(device ms, device ops) per step of a profiler trace: every kernel,
+    copy and memset record, whether launched alone or by a graph replay
+    (whose kernels share the replay's correlation id)."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    dev = [e["dur"] for e in events
+           if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    return sum(dev) / 1e3 / steps, len(dev) / steps
+
+
+def check_replays(ren, steps: int) -> None:
+    """A captured renderer's ``steps`` since the reset: all replayed but
+    the capture's eager warm-up, if it fell among them (the only step that
+    launches the accumulation from Python)."""
+    eager = kernels.launch_counts()["accumulate"]
+    if eager > 1 or ren.replayed_steps != steps - eager:
+        raise AssertionError(f"{ren.replayed_steps} of {steps} steps "
+                             f"replayed, {eager} run eagerly")
+
+
+def warm_profiler() -> None:
+    """The profiler's first session sets up the device tracing; keep that
+    cost out of the first window."""
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.ones(1, device=DEV).add_(1)
+        torch.cuda.synchronize()
 
 
 def phase3(ren, poses_run=(0, 1, 2), label: str = ""):
     """The main path at full size (or, with a ``label``, another scene's
     path), with the traversal generation that ``ren.cfg.packet_kernel_mode``
-    selects: for each pose 4 warm-up steps, 8 steps timed with CUDA
-    events, then 2 steps under the profiler for the per-stage device-time
-    split and the device's idle share."""
+    selects, eager or captured as ``ren.captured`` says: for each pose 4
+    warm-up steps, 8 steps timed with CUDA events, then 2 steps under the
+    profiler for the device's busy time and idle share, and for an eager
+    renderer the per-stage device-time split (a graph replay has no
+    stages)."""
     cfg = ren.cfg
     wave = tr._pick_wave(cfg, "extend")
-    tag = label + ("wave" if wave else "mono")
+    tag = label + ("wave" if wave else "mono") \
+        + ("-captured" if ren.captured else "")
     TRACE_DIR.mkdir(parents=True, exist_ok=True)
-    # the profiler's first session sets up the device tracing; keep that
-    # cost out of pose 0's window
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
-        torch.ones(1, device=DEV).add_(1)
-        torch.cuda.synchronize()
-    reset_launches()
+    warm_profiler()
+    reset_launches(ren)
     total_steps = 0
     poses = []
     for i in poses_run:
@@ -749,15 +806,19 @@ def phase3(ren, poses_run=(0, 1, 2), label: str = ""):
             torch.cuda.synchronize()
         prof.export_chrome_trace(str(trace))
         window_ms = a.elapsed_time(b) / 2
-        split, busy_ms, ops = stage_split(trace, 2)
+        busy_ms, n_ops = device_busy(trace, 2)
         idle = 1.0 - busy_ms / window_ms
-        if not all(split[s] > 0 for s in STAGES):
-            raise AssertionError(f"pose {i}: a stage ran nothing on the "
-                                 f"device: {split}")
-        if ops["accumulate"] != 1:
-            raise AssertionError(f"pose {i}: the accumulate stage ran "
-                                 f"{ops['accumulate']} device ops a step, "
-                                 "not its one kernel")
+        split = ops = None
+        if not ren.captured:
+            split, busy_ms, ops = stage_split(trace, 2)
+            idle = 1.0 - busy_ms / window_ms
+            if not all(split[s] > 0 for s in STAGES):
+                raise AssertionError(f"pose {i}: a stage ran nothing on the "
+                                     f"device: {split}")
+            if ops["accumulate"] != 1:
+                raise AssertionError(f"pose {i}: the accumulate stage ran "
+                                     f"{ops['accumulate']} device ops a "
+                                     "step, not its one kernel")
         total_steps += 14
 
         acc = ren.state.accum
@@ -774,17 +835,23 @@ def phase3(ren, poses_run=(0, 1, 2), label: str = ""):
                           paths_counted=int(counted),
                           profiled_ms_per_step=window_ms,
                           device_busy_ms_per_step=busy_ms, idle_share=idle,
-                          device_split_ms=split, device_ops_per_step=ops))
+                          device_split_ms=split, device_ops_per_step=ops,
+                          device_ops_total_per_step=n_ops))
         log(f"phase 3 {tag} pose {i}: {ms:.3f} ms/step (host {wall_ms:.3f}), "
             f"{mr:.3f} Mrays/s, {shadow_n / 8:.0f} shadow rays/step, "
             f"{int(counted)} paths counted = ended")
         log(f"phase 3 {tag} pose {i} profiled: {window_ms:.3f} ms/step, "
-            f"device busy {busy_ms:.3f} ms (idle {idle:.3f}); device ms "
+            f"device busy {busy_ms:.3f} ms (idle {idle:.3f}), {n_ops:g} "
+            "device ops a step" + ("" if split is None else "; device ms "
             + " ".join(f"{k} {v:.3f}" for k, v in split.items())
             + "; device ops a step " + " ".join(f"{k} {v:g}"
-                                                for k, v in ops.items()))
-    launches = read_launches()
-    log(f"phase 3 {tag} launches over {total_steps} steps: {launches}")
+                                                for k, v in ops.items())))
+    launches = read_launches(ren)
+    if ren.captured:
+        check_replays(ren, total_steps)
+    log(f"phase 3 {tag} launches over {total_steps} steps: {launches}"
+        + (f" ({ren.replayed_steps} steps replayed)" if ren.captured
+           else ""))
     want = {"traverse": 0 if wave else 2 * total_steps,
             "traverse_wave": 2 * total_steps if wave else 0,
             "accumulate": total_steps, "stream": 0}
@@ -804,6 +871,19 @@ def compare_in_step(mono: list, wave: list) -> None:
             f"{m['ms_per_step']:.3f}/{w['ms_per_step']:.3f}, device busy "
             f"{m['device_busy_ms_per_step']:.3f}/"
             f"{w['device_busy_ms_per_step']:.3f}, device ms {cols}")
+
+
+def compare_captured(eager: list, captured: list) -> None:
+    """The main cell eager against captured, pose by pose."""
+    for e, c in zip(eager, captured):
+        log(f"main cell pose {e['pose']} eager/captured: ms/step "
+            f"{e['ms_per_step']:.3f}/{c['ms_per_step']:.3f}, Mrays/s "
+            f"{e['mrays_per_s']:.3f}/{c['mrays_per_s']:.3f}, device busy "
+            f"{e['device_busy_ms_per_step']:.3f}/"
+            f"{c['device_busy_ms_per_step']:.3f} ms, idle "
+            f"{e['idle_share']:.3f}/{c['idle_share']:.3f}, device ops "
+            f"{e['device_ops_total_per_step']:g}/"
+            f"{c['device_ops_total_per_step']:g}")
 
 
 def check_queue(what: str, o, d, t, tables, bvh, closest: bool,
@@ -955,8 +1035,13 @@ def kernels_at_slice(ren, stream: bool = True, label: str = "slice") -> dict:
 def display_path(scene, tables, cfg: RenderConfig, steps: int = 8) -> dict:
     """The denoised display path with the wave kernel: ``steps`` steps at
     pose 0, then ``image()`` (AOV pass, à-trous denoiser, bloom, tone
-    map), timed whole and by part with CUDA events."""
-    ren = tr.Renderer(scene, cfg, tables=tables)
+    map), timed whole and by part with CUDA events, eagerly
+    (``fuse_step_chains="off"``); then the same on a captured renderer,
+    whose state and ``image()`` (and ``image(uint8=True)``) must equal
+    the eager ones bit for bit, with ``image()`` timed eager against
+    captured, replay against replay."""
+    ren = tr.Renderer(scene, dataclasses.replace(cfg, fuse_step_chains="off"),
+                      tables=tables)
     cam = camera_for_pose(0)
     reset_launches()
     ren.step(cam, steps)
@@ -979,8 +1064,8 @@ def display_path(scene, tables, cfg: RenderConfig, steps: int = 8) -> dict:
 
     aovs = ren.aovs()
     mean = ren.radiance()
-    aov_ms = cuda_ms(lambda: tr.render_aovs(ren.scene, ren._last_cam, cfg,
-                                            ren.tables), 3)
+    aov_ms = cuda_ms(lambda: tr.render_aovs(ren.scene, ren._last_cam,
+                                            ren.cfg, ren.tables), 3)
     dn_ms = cuda_ms(lambda: atrous_denoise(
         mean, aovs["albedo"], aovs["normal"], aovs["depth"],
         iterations=cfg.denoise_iterations), 3)
@@ -991,9 +1076,270 @@ def display_path(scene, tables, cfg: RenderConfig, steps: int = 8) -> dict:
     log(f"display path {cfg.width}x{cfg.height}: image() {image_ms:.3f} ms "
         f"(AOV pass {aov_ms:.3f} ms, denoiser {dn_ms:.3f} ms, bloom "
         f"{bloom_ms:.3f} ms); mean |denoised - raw| {changed:.4f}")
+    img8 = ren.image(uint8=True)
+    eager_ms = cuda_ms(ren.image, 5)  # the AOVs cached: the resolve alone
+
+    # the same path captured
+    cap = tr.Renderer(scene, dataclasses.replace(cfg,
+                                                 fuse_step_chains="auto"),
+                      tables=tables)
+    reset_launches(cap)
+    cap.step(cam, steps)
+    got = cap.image().clone()
+    got8 = cap.image(uint8=True).clone()
+    torch.cuda.synchronize()
+    cap_launches = read_launches(cap)
+    check_replays(cap, steps)
+    same_state = states_equal(ren.state, cap.state)
+    if not (same_state and same_bits(got, img)
+            and torch.equal(got8, img8)):
+        raise AssertionError(f"the captured display path differs from the "
+                             f"eager one: state equal {same_state}, image "
+                             f"equal {same_bits(got, img)}, uint8 equal "
+                             f"{torch.equal(got8, img8)}")
+    replay_ms = cuda_ms(cap.image, 5)
+    log(f"display path captured: {steps} steps, image() and image(uint8="
+        f"True) bit for bit the eager ones; launches {cap_launches} "
+        f"({cap.replayed_steps} steps replayed); image() with the AOVs "
+        f"cached: eager {eager_ms:.3f} ms, captured {replay_ms:.3f} ms")
     return dict(image_ms=image_ms, aov_ms=aov_ms, denoise_ms=dn_ms,
                 bloom_ms=bloom_ms, launches=launches,
-                mean_change=changed)
+                mean_change=changed,
+                captured=dict(launches=cap_launches, image_equal=True,
+                              eager_image_ms=eager_ms,
+                              captured_image_ms=replay_ms))
+
+
+STATE_FIELDS = [f.name for f in dataclasses.fields(tr.RenderState)]
+
+
+def states_equal(a, b) -> bool:
+    """Every RenderState field equal bit for bit."""
+    return all(torch.equal(getattr(a, k).view(torch.uint8)
+                           if getattr(a, k).dtype == torch.float32
+                           else getattr(a, k),
+                           getattr(b, k).view(torch.uint8)
+                           if getattr(b, k).dtype == torch.float32
+                           else getattr(b, k)) for k in STATE_FIELDS)
+
+
+def captured_step(scene, tables, cfg: RenderConfig,
+                  poses_run=(0, 1, 2)) -> dict:
+    """The main cell captured (``fuse_step_chains="auto"``) beside the
+    eager step (``"off"``): both renderers step 3 times at pose 0, 2 at
+    pose 1, then 1 after a sun change, and every RenderState field must
+    then be equal bit for bit; then phase 3 on the captured renderer (the
+    eager numbers are phase 3's own) and the graph of one step against a
+    chain of four, 8 steps a window."""
+    eager = tr.Renderer(scene, dataclasses.replace(cfg,
+                                                   fuse_step_chains="off"),
+                        tables=tables)
+    cap = tr.Renderer(scene, dataclasses.replace(cfg,
+                                                 fuse_step_chains="auto"),
+                      tables=tables)
+    if eager.captured or not cap.captured:
+        raise AssertionError("fuse_step_chains did not select the step")
+    reset_launches(cap)
+    for ren in (eager, cap):
+        ren.step(camera_for_pose(0), 3)
+        ren.step(camera_for_pose(1), 2)
+        ren.set_sun((0.2, 0.35))
+        ren.step(camera_for_pose(1), 1)
+    torch.cuda.synchronize()
+    if not states_equal(eager.state, cap.state):
+        bad = [k for k in STATE_FIELDS if not torch.equal(
+            getattr(eager.state, k), getattr(cap.state, k))]
+        raise AssertionError(f"captured and eager states differ after 6 "
+                             f"steps in: {bad}")
+    log(f"captured step: bit for bit the eager step on every RenderState "
+        f"field after 6 steps (a pose and a sun change between); "
+        f"{cap.replayed_steps} replayed, launches by the replays "
+        f"{cap.replayed_launches}")
+    del eager
+    cap.set_sun((0.05, 0.3))
+    poses, launches = phase3(cap, poses_run)
+    # the renderer's graph of one step against a graph of four (the JAX
+    # package's _CHAIN_LEN), made here on the renderer's static buffers
+    cam = camera_for_pose(0)
+    cap.step(cam, 1)
+    four = tr._Graph(lambda: [cap._static_step() for _ in range(4)], DEV,
+                     "a chain of four render steps")
+    chains = {1: cuda_ms(lambda: cap.step(cam, 8), 3) / 8,
+              4: cuda_ms(lambda: [four.graph.replay() for _ in range(2)],
+                         3) / 8}
+    del four
+    log(f"captured step: a graph of one step {chains[1]:.3f} ms/step, a "
+        f"chain of four {chains[4]:.3f} ms/step (8 steps a window)")
+    return dict(equal_after_6=True, poses=poses, launches=launches,
+                chain_ms_per_step={str(k): v for k, v in chains.items()})
+
+
+def normals_at_extend(ren, reps: int = 5, min_hits: float = 0.2,
+                      max_steps: int = 16) -> dict:
+    """The normals output of both depth-first kernels on an extend queue
+    of ``ren`` at pose 0 (the interactive preset's, on the main scene):
+    the first step's queue whose rays hit a triangle ``min_hits`` of the
+    time (a 131,072-ray queue covers a band of the image, which starts in
+    the sky), or the last of ``max_steps``.  t and ids equal to the same
+    kernel's without normals,
+    the normals bit for bit ``hit_normals`` of its own ids (the plain
+    version's arithmetic), and against the plain walk with normals: ids
+    with the tie rule, normals bit for bit where the ids agree.  Timed
+    with and without normals, beside the plain walk and a bound: the
+    extend bound plus the normals written (12 B a ray) and 9 operations
+    a hit."""
+    cfg, sc = ren.cfg, ren.scene
+    cam = camera_for_pose(0)
+    for steps in range(1, max_steps + 1):
+        ren.step(cam, 1)
+        rays = tr.merge_queue(cfg, ren.state, cam.to_device(cfg, DEV))
+        o, d = rays["origin"], rays["direction"]
+        t_sph, _ = tr.sphere_pass(o, d, sc)
+        _, hit_id = ktrav.closest_hit_packets(o, d, ren.tables, t_sph)
+        if float((hit_id >= 0).float().mean()) >= min_hits:
+            break
+    stats = {}
+    (t_p, id_p, n_p), plain_ms = timed_once(
+        lambda: plain_trav.closest_hit(o, d, sc.bvh, t_sph, stats=stats,
+                                       normals=True))
+    n = o.shape[0]
+    hits = int((id_p >= 0).sum())
+    rows = int(stats["rows"].sum()) + int(not bool(stats["rows"][0]))
+    n_bytes = n * (3 + 3 + 1) * 4 + n * 8 + n * 12 + rows * NODE_BYTES \
+        + stats["tris_read"] * TRI_BYTES
+    bnd, by = bound_ms(n_bytes, SLAB_OPS * stats["box_tests"]
+                       + MT_OPS * stats["tri_tests"] + 9 * hits)
+    out = dict(rays=n, hits=hits, steps=steps, plain_ms=plain_ms,
+               bound_ms=bnd, bound_by=by)
+    for gen, wave in GENERATIONS:
+        t0, id0 = ktrav.closest_hit_packets(o, d, ren.tables, t_sph,
+                                            wave=wave)
+        t1, id1, n1 = ktrav.closest_hit_packets(o, d, ren.tables, t_sph,
+                                                wave=wave, normals=True)
+        own = plain_trav.hit_normals(sc.bvh.tri_packed, id1)
+        agree = id1 == id_p
+        if not (torch.equal(id0, id1) and same_bits(t0, t1)
+                and same_bits(n1, own)
+                and same_bits(n1[agree], n_p[agree])):
+            raise AssertionError(
+                f"{gen} normals: ids equal {torch.equal(id0, id1)}, t equal "
+                f"{same_bits(t0, t1)}, normals = hit_normals "
+                f"{same_bits(n1, own)}, = the plain walk's where the ids "
+                f"agree {same_bits(n1[agree], n_p[agree])}")
+        res = check_closest(f"preset extend {gen} with normals", t1, id1,
+                            t_p, id_p)
+        ms = cuda_ms(lambda wave=wave: ktrav.closest_hit_packets(
+            o, d, ren.tables, t_sph, wave=wave, normals=True), reps)
+        ms_off = cuda_ms(lambda wave=wave: ktrav.closest_hit_packets(
+            o, d, ren.tables, t_sph, wave=wave), reps)
+        err = float((n1 - own).abs().max()) if n else 0.0
+        out[gen] = dict(res, normals_max_abs_err=err, ms=ms,
+                        ms_without_normals=ms_off)
+        log(f"preset extend {gen}, step {steps}'s queue: normals bit for "
+            f"bit the plain version ({hits} of {n} rays hit a triangle), t "
+            f"and ids those of the "
+            f"kernel without normals; {ms:.4f} ms with normals, "
+            f"{ms_off:.4f} ms without, plain walk {plain_ms:.3f} ms, bound "
+            f"{bnd:.4f} ms ({by})")
+    return out
+
+
+def shade_split(ren, frames: int = 2) -> dict:
+    """An eager fly-through renderer's per-stage device split over
+    ``frames`` more frames (one step and one image each), from a profiler
+    trace: the shade stage's ms and device ops a step."""
+    cam = camera_for_pose(0)
+    interactive.frame(ren, cam, 0)
+    trace = TRACE_DIR / "trace_flythrough.json"
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(frames):
+            interactive.frame(ren, cam, i + 1)
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(trace))
+    split, busy, ops = stage_split(trace, frames)
+    return dict(split_ms=split, ops=ops, busy_ms=busy)
+
+
+def flythrough(scene, tables, cfg: RenderConfig, n_frames: int = 40,
+               profiled: int = 8) -> dict:
+    """The interactive fly-through (``bench/interactive.py``) at
+    ``cfg``'s size, the camera moving every frame from pose 0, then
+    still: ``use_kernel_normals`` and ``fuse_step_chains`` each on and
+    off, and the wave kernel with both on.  Per run: ms a frame (mean,
+    median, min) and FPS for both cameras; ``profiled`` more moving frames
+    under the profiler for the device's busy time and idle share; the
+    launches, replays counted, which must be the steps'; for the eager
+    runs, the shade stage's ms and ops from their trace."""
+    out = {}
+    runs = [("normals-on", "on", "auto", "auto"),
+            ("normals-on", "on", "off", "auto"),
+            ("normals-off", "off", "auto", "auto"),
+            ("normals-off", "off", "off", "auto"),
+            ("normals-on-wave", "on", "auto", "wave")]
+    TRACE_DIR.mkdir(parents=True, exist_ok=True)
+    warm_profiler()
+    for name, kn, fuse, mode in runs:
+        c = dataclasses.replace(cfg, use_kernel_normals=kn,
+                                fuse_step_chains=fuse,
+                                packet_kernel_mode=mode)
+        reset_launches()
+        res = interactive.run_interactive(scene, c, n_frames=n_frames,
+                                          tables=tables)
+        ren = res.pop("renderer")
+        cam = camera_for_pose(0)
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        trace = TRACE_DIR / f"trace_fly_{name}_{fuse}.json"
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            a.record()
+            t0 = time.perf_counter()
+            for i in range(profiled):
+                interactive.frame(ren, cam, i)
+            b.record()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / profiled
+        prof.export_chrome_trace(str(trace))
+        window = a.elapsed_time(b) / profiled
+        busy, n_ops = device_busy(trace, profiled)
+        steps = 2 * (interactive.WARMUP_FRAMES + n_frames) + profiled
+        launches = read_launches(ren, keys=LAUNCH_KEYS + NORMALS_KEYS)
+        gen = "traverse_wave" if mode == "wave" else "traverse"
+        want_normals = steps if kn == "on" else 0
+        if launches["accumulate"] != steps \
+                or launches[gen] != 2 * steps \
+                or launches[f"{gen}_normals"] != want_normals:
+            raise AssertionError(f"fly-through {name} {fuse}: launches "
+                                 f"{launches} over {steps} steps")
+        if ren.captured:
+            check_replays(ren, steps)
+        elif not (n_ops and busy > 0):
+            raise AssertionError("the eager fly-through ran nothing traced")
+        run = dict(res, wall_ms_per_frame=wall, window_ms_per_frame=window,
+                   device_busy_ms_per_frame=busy,
+                   idle_share=1.0 - busy / window, device_ops_per_frame=n_ops,
+                   launches=launches, steps=steps,
+                   replayed_steps=ren.replayed_steps, captured=ren.captured)
+        if not ren.captured and mode == "auto":
+            run["eager_split"] = shade_split(ren)
+        out[f"{name}-{fuse}"] = run
+        img = ren.image(uint8=True)
+        if tuple(img.shape) != (c.height, c.width, 3):
+            raise AssertionError(f"fly-through image shape {img.shape}")
+        log(f"fly-through {name} fuse={fuse} ({c.width}x{c.height}, "
+            f"{c.num_rays} rays): moving {res['moving']['mean_ms']:.3f} "
+            f"ms/frame (median {res['moving']['median_ms']:.3f}, min "
+            f"{res['moving']['min_ms']:.3f}, {res['moving']['fps']:.1f} "
+            f"FPS), still {res['still']['mean_ms']:.3f} ms/frame "
+            f"({res['still']['fps']:.1f} FPS); profiled {window:.3f} ms/"
+            f"frame (host {wall:.3f}), device busy {busy:.3f} ms (idle "
+            f"{1.0 - busy / window:.3f}), {n_ops:g} device ops a frame; "
+            f"launches {launches}, {ren.replayed_steps} of {steps} steps "
+            "replayed" + ("" if "eager_split" not in run else
+                          f"; eager shade {run['eager_split']['split_ms']['shade']:.3f} ms, "
+                          f"{run['eager_split']['ops']['shade']:g} ops a step"))
+        del ren
+    return out
 
 
 def phase4(denoise_wave: bool = False) -> float:
@@ -1162,9 +1508,11 @@ def main() -> int:
     t0 = time.perf_counter()
     v0, v1, v2 = benchmark_scene(1_048_576)
     scene_host = Scene.from_triangles(v0, v1, v2)
-    cfg = RenderConfig()
+    cfg = RenderConfig()  # fuse_step_chains="auto": captured on the card
+    # the phases that split the step by stage run it eagerly
+    cfg_eager = dataclasses.replace(cfg, fuse_step_chains="off")
     torch.cuda.reset_peak_memory_stats()
-    ren = tr.Renderer(scene_host, cfg)
+    ren = tr.Renderer(scene_host, cfg_eager)
     peak_mb = torch.cuda.max_memory_allocated() / 1e6
     log(f"scene: {scene_host.stats['triangles']} triangles, "
         f"{ren.scene.bvh.n_nodes} nodes, {ren.tables.rows.shape[0]} fat rows, "
@@ -1183,20 +1531,31 @@ def main() -> int:
     acc = phase2(cfg.num_pixels, cfg.num_rays)
     poses, launches = phase3(ren)
     ren_w = tr.Renderer(ren.scene, dataclasses.replace(
-        cfg, packet_kernel_mode="wave"), tables=ren.tables)
+        cfg_eager, packet_kernel_mode="wave"), tables=ren.tables)
     poses_w, launches_w = phase3(ren_w)
     compare_in_step(poses, poses_w)
     del ren_w
+    cap = captured_step(ren.scene, ren.tables, cfg)
+    compare_captured(poses, cap["poses"])
     sl = kernels_at_slice(ren)
     disp = display_path(ren.scene, ren.tables, dataclasses.replace(
         cfg, denoise="on", bloom_strength=0.1, packet_kernel_mode="wave"))
+    # the interactive preset on the main scene
+    preset = interactive_config()
+    if not ren.scene.tri_default_mat:
+        raise AssertionError("the main scene's triangles are not all of "
+                             "the default material")
+    nrm = normals_at_extend(tr.Renderer(
+        ren.scene, dataclasses.replace(preset, fuse_step_chains="off"),
+        tables=ren.tables))
+    fly = flythrough(ren.scene, ren.tables, preset)
     mad = phase4()
     mad_dn = phase4(denoise_wave=True)
     bench = bench_path(ren.scene, cfg)
     del ren
     torch.cuda.empty_cache()
-    ld = loaded_path(cfg)
-    sf = sphere_free_path(cfg)
+    ld = loaded_path(cfg_eager)
+    sf = sphere_free_path(cfg_eager)
 
     queues = ("extend", "connect", "aov")
 
@@ -1246,25 +1605,55 @@ def main() -> int:
         return {k: q[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                   "library_ms", "live", "distinct")}
 
+    def normals_entry(gen, run):
+        n = nrm[gen]
+        return dict(normals_launches=fly[run]["launches"][
+                        f"{'traverse_wave' if gen == 'wave' else 'traverse'}"
+                        "_normals"],
+                    normals_replaces="tyrant_tpu/ops/pallas/"
+                                     "traverse_kernel.py:930",
+                    normals={"max_abs_err": n["normals_max_abs_err"],
+                             "mismatches": n["mismatches"],
+                             "rays": nrm["rays"], "hits": nrm["hits"],
+                             "ms": n["ms"],
+                             "ms_without_normals": n["ms_without_normals"],
+                             "plain_ms": nrm["plain_ms"],
+                             "bound_ms": nrm["bound_ms"],
+                             "bound_by": nrm["bound_by"]})
+
+    regs = build.registers()
     result = {"kernels": [
         {"name": "traverse", "route": "cuda",
          "source": "tyrant_tpu_torch/csrc/traverse.cu",
          "replaces": "tyrant_tpu/ops/pallas/traverse_kernel.py:164",
-         "launches": launches["traverse"],
+         # the main cell captured: the replays' launches counted
+         "launches": cap["launches"]["traverse"],
+         "eager_launches": launches["traverse"],
          "loaded_launches": ld["launches"]["mono"]["traverse"],
          "sphere_free_launches": sf["launches"]["traverse"],
-         **entry("mono")},
+         "flythrough_launches": fly["normals-on-auto"]["launches"][
+             "traverse"],
+         "registers": {k: v for k, v in regs.items()
+                       if k.startswith("traverse_kernel<")},
+         **entry("mono"), **normals_entry("mono", "normals-on-auto")},
         {"name": "traverse_wave", "route": "cuda",
          "source": "tyrant_tpu_torch/csrc/traverse_wave.cu",
          "replaces": "tyrant_tpu/ops/pallas/traverse_kernel.py:646",
          "launches": launches_w["traverse_wave"],
          "display_launches": disp["launches"]["traverse_wave"],
+         "display_captured_launches": disp["captured"]["launches"][
+             "traverse_wave"],
          "loaded_launches": ld["launches"]["wave"]["traverse_wave"],
-         **entry("wave")},
+         "registers": {k: v for k, v in regs.items()
+                       if k.startswith("traverse_wave_kernel<")},
+         **entry("wave"), **normals_entry("wave", "normals-on-wave-auto")},
         {"name": "accumulate", "route": "cuda",
          "source": "tyrant_tpu_torch/csrc/accum.cu",
          "replaces": "tyrant_tpu/ops/pallas/accum_kernel.py:50",
-         "launches": launches["accumulate"],
+         "launches": cap["launches"]["accumulate"],
+         "eager_launches": launches["accumulate"],
+         "flythrough_launches": fly["normals-on-auto"]["launches"][
+             "accumulate"],
          "loaded_launches": ld["launches"]["mono"]["accumulate"]
          + ld["launches"]["wave"]["accumulate"],
          "sphere_free_launches": sf["launches"]["accumulate"],
@@ -1297,7 +1686,9 @@ def main() -> int:
                     "display": disp, "card_vs_cpu": mad,
                     "card_vs_cpu_denoised_wave": mad_dn, "build_s": build_s,
                     "renderer_peak_mb": peak_mb, "loaded": ld,
-                    "sphere_free": sf}))
+                    "sphere_free": sf, "captured": cap,
+                    "preset_normals": nrm, "flythrough": fly,
+                    "registers": regs}))
     log(gpu)
     log(json.dumps(result))
     log(json.dumps({"ok": True, "device": {

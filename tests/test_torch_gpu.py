@@ -1,9 +1,11 @@
 """The CUDA kernels against their plain PyTorch versions, on the card.
 
 These run chip_smoke.py's checks (phases 1, 2 and 4, the kernels at the
-main path's queues, the denoised display path, the stream kernel's
-overflow, the equivalence gate, the pose harness, the loaded scene and the
-sphere-free scene) at small sizes, so the
+main path's queues, the denoised display path eager and captured, the
+stream kernel's overflow, the equivalence gate, the pose harness, the
+loaded scene, the sphere-free scene, the captured step against the eager
+one, the normals output of both traversal kernels and the interactive
+fly-through) at small sizes, so the
 card's checks live in one place.  The kernels have no CPU mode, so
 these tests skip without a CUDA device.  This file imports no JAX, so it
 also runs where JAX is not installed:
@@ -318,3 +320,129 @@ def test_root_leaf_scene(cuda, n_tris, spheres):
     assert queues["extend"]["t_init_all_far"] == (spheres == "none")
     acc = ren.state.accum
     assert bool(torch.isfinite(acc).all()) and float(acc[:, 3].sum()) > 0
+
+
+def test_captured_step_is_bit_equal_to_eager(cuda):
+    """chip_smoke's captured main cell at a small size: the captured step
+    bit for bit the eager one on every RenderState field after 6 steps
+    with a pose and a sun change between, then phase 3 captured (14 steps
+    a pose, all replayed) and a chain of four timed."""
+    sd = Scene.from_triangles(*terrain(n_quads=32, towers=3)).to_device(cuda)
+    tables = ktrav.PacketTables(sd.bvh)
+    cap = chip_smoke.captured_step(sd, tables,
+                                   small_config(96, 64, num_rays=8192),
+                                   poses_run=(0, 1))
+    assert cap["equal_after_6"]
+    assert cap["launches"] == {"traverse": 2 * 28, "traverse_wave": 0,
+                               "accumulate": 28, "stream": 0}
+    assert all(p["device_busy_ms_per_step"] > 0 for p in cap["poses"])
+    assert set(cap["chain_ms_per_step"]) == {"1", "4"}
+
+
+def test_captured_replays_count_launches(cuda):
+    """A replay adds nothing to the wrappers' counters; the renderer
+    counts the replayed steps and their launches, one graph of one step
+    and one of the AOV pass, replayed once per pose."""
+    sd = Scene.from_triangles(*terrain(n_quads=16, towers=2)).to_device(cuda)
+    ren = tr.Renderer(sd, small_config(64, 48, num_rays=4096,
+                                       denoise="on"))
+    chip_smoke.reset_launches(ren)
+    ren.step(chip_smoke.camera_for_pose(0), 10)
+    assert ren.replayed_steps == 9
+    assert (kacc.launches, ktrav.launches) == (1, 2)  # the warm-up
+    assert ren.replayed_launches == {"traverse": 18, "accumulate": 9}
+    ren.image()
+    ren.image()  # the same pose: the AOV pass is not run again
+    assert ktrav.launches == 3  # its warm-up
+    assert ren.replayed_launches["traverse"] == 19
+    assert set(ren._graphs) == {"step", "aov", ("image", True, False)}
+
+
+def test_captured_image_is_bit_equal_to_eager(cuda):
+    """chip_smoke's display path at a small size: image() with the
+    denoiser and bloom, and image(uint8=True), captured, bit for bit the
+    eager ones."""
+    sd = Scene.from_triangles(*terrain(n_quads=32, towers=3)).to_device(cuda)
+    disp = chip_smoke.display_path(
+        sd, ktrav.PacketTables(sd.bvh),
+        small_config(width=96, height=64, num_rays=8192, denoise="on",
+                     bloom_strength=0.1, packet_kernel_mode="wave"), steps=3)
+    assert disp["captured"]["image_equal"]
+    assert disp["captured"]["launches"]["accumulate"] == 3
+
+
+@pytest.mark.parametrize("wave", [False, True])
+def test_kernel_normals_match_plain(cuda, wave):
+    """Both kernels' normals output bit for bit the plain version's
+    arithmetic on their own ids, their t and ids those of the kernel
+    without normals, zero on a miss; any hit takes no normals."""
+    sd = Scene.from_triangles(*terrain(n_quads=32, towers=3),
+                              builder="numpy").to_device(cuda)
+    tables = ktrav.PacketTables(sd.bvh)
+    o, d, _ = chip_smoke.bench_rays(sd.bvh, 4096)
+    t0, id0 = ktrav.closest_hit_packets(o, d, tables, wave=wave)
+    before = ktrav.launches_wave_normals if wave else ktrav.launches_normals
+    t1, id1, n1 = ktrav.closest_hit_packets(o, d, tables, wave=wave,
+                                            normals=True)
+    after = ktrav.launches_wave_normals if wave else ktrav.launches_normals
+    assert after == before + 1
+    assert torch.equal(id0, id1) and chip_smoke.same_bits(t0, t1)
+    assert chip_smoke.same_bits(n1, plain_trav.hit_normals(sd.bvh.tri_packed,
+                                                           id1))
+    assert bool((n1[id1 < 0] == 0).all()) and int((id1 >= 0).sum()) > 0
+    t_p, id_p, n_p = plain_trav.closest_hit(o, d, sd.bvh, normals=True)
+    agree = id1 == id_p
+    assert chip_smoke.same_bits(n1[agree], n_p[agree])
+
+
+def test_normals_at_the_preset_extend_queue(cuda):
+    """chip_smoke's normals check on the interactive preset's extend queue
+    at a small size."""
+    from tyrant_tpu_torch.config import interactive_config
+    sd = Scene.from_triangles(*terrain(n_quads=32, towers=3)).to_device(cuda)
+    ren = tr.Renderer(sd, interactive_config(96, 64, num_rays=8192,
+                                             fuse_step_chains="off"))
+    out = chip_smoke.normals_at_extend(ren)
+    assert out["hits"] > 0
+    for gen in ("mono", "wave"):
+        assert out[gen]["mismatches"] == 0
+        assert out[gen]["normals_max_abs_err"] == 0.0
+
+
+def test_small_flythrough(cuda):
+    """chip_smoke's fly-through at a small size: the preset with normals
+    and capture each on and off and the wave kernel, launches and replays
+    counted."""
+    from tyrant_tpu_torch.config import interactive_config
+    sd = Scene.from_triangles(*terrain(n_quads=32, towers=3)).to_device(cuda)
+    assert sd.tri_default_mat
+    fly = chip_smoke.flythrough(sd, ktrav.PacketTables(sd.bvh),
+                                interactive_config(96, 64, num_rays=8192),
+                                n_frames=4, profiled=2)
+    steps = 2 * (2 + 4) + 2
+    on = fly["normals-on-auto"]
+    assert on["captured"] and on["replayed_steps"] == steps - 1
+    assert on["launches"]["traverse_normals"] == steps
+    assert fly["normals-off-off"]["launches"]["traverse_normals"] == 0
+    assert fly["normals-on-wave-auto"]["launches"][
+        "traverse_wave_normals"] == steps
+    for run in ("normals-on-off", "normals-off-off"):
+        assert fly[run]["eager_split"]["ops"]["shade"] > 0
+
+
+def test_failed_capture_raises(cuda, monkeypatch):
+    """A step that cannot be captured (here one that reads a value back to
+    the host) raises, and the renderer does not go on eagerly."""
+    sd = Scene.from_triangles(*terrain(n_quads=16, towers=2)).to_device(cuda)
+    ren = tr.Renderer(sd, small_config(64, 48, num_rays=4096,
+                                       fuse_step_chains="on"))
+    step = tr.render_step
+
+    def syncing_step(state, *args, **kw):
+        float(state.n_carried)  # a host read: no graph can hold it
+        return step(state, *args, **kw)
+
+    monkeypatch.setattr(tr, "render_step", syncing_step)
+    with pytest.raises(RuntimeError, match="capturing the render step"):
+        ren.step(chip_smoke.camera_for_pose(0), 2)
+    assert ("step", 1) not in ren._graphs and ren.replayed_steps == 0

@@ -1,6 +1,6 @@
-"""Camera model, the port of ``tyrant_tpu/camera.py`` (the pose, aiming at
-a point, its projection basis and its upload; the fly controls are not
-ported).
+"""Camera model, the port of ``tyrant_tpu/camera.py``: the pose, the fly
+controls (:meth:`Camera.move`, :meth:`Camera.look`), aiming at a point,
+the projection basis and the upload.
 :class:`Camera` is host state (numpy); :meth:`Camera.to_device` gives the
 per-frame :class:`CameraParams` tensors on a named device."""
 
@@ -12,7 +12,7 @@ import math
 import numpy as np
 import torch
 
-from .config import RenderConfig
+from .config import PI, RenderConfig
 
 
 @dataclasses.dataclass
@@ -46,6 +46,26 @@ class Camera:
         ch, sh = math.cos(self.horizontal_angle), math.sin(self.horizontal_angle)
         d = np.array([cv * sh, cv * ch, sv], np.float32)
         return d / np.linalg.norm(d)
+
+    def move(self, forward=0.0, strafe=0.0, vertical=0.0, delta=1.0,
+             sprint=False):
+        """WASD/space/ctrl movement along the view direction, its right
+        and world up; ``sprint`` (shift) moves 40x as far."""
+        speed = (40.0 if sprint else 1.0) * delta
+        d = self.direction
+        disp = np.cross(d, self.up)
+        disp = disp / np.linalg.norm(disp)
+        self.position = (self.position + d * (forward * speed)
+                         + disp * (strafe * speed)
+                         + np.array([0, 0, vertical * speed], np.float32))
+
+    def look(self, dx: float, dy: float):
+        """Mouse look: 0.012 rad a pixel, pitch clamped short of the
+        poles."""
+        self.horizontal_angle += dx * 0.012
+        self.vertical_angle -= dy * 0.012
+        self.vertical_angle = max(-PI / 2 + 1e-3,
+                                  min(self.vertical_angle, PI / 2 - 1e-3))
 
     def look_at(self, target):
         """Aim at a world point: set the spherical angles so ``direction``

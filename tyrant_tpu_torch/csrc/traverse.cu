@@ -37,6 +37,15 @@
 //    thread, measured 4-5% slower (PERF.md).  The launch bounds hold the
 //    kernel to 40 registers a thread, so 12 blocks an SM are in flight.
 //
+// The normals output (closest hit, NORMALS): the Pallas kernel carries the
+// winner's cross(e1, e2) through every leaf pass, three more floats a
+// lane, because a TPU lane cannot gather after its walk.  Here three more
+// loop carries would spill under the 40-register bound, so a lane that has
+// finished its walk reads the winner's triangle record once and computes
+// the cross there (store_normal, traverse_common.cuh): one 48-byte record
+// a hit ray.  NORMALS is a template argument, so the kernel that extend,
+// connect and the AOV pass run without normals keeps its registers.
+//
 // Semantics follow the Pallas kernel: closest accepts t > EPS and
 // (t_best - t) > EPS slot by slot; any hit accepts (max_dist - t) > EPS and
 // stops at the first one; rays with max_dist <= 2 EPS are done at once;
@@ -56,14 +65,16 @@ constexpr int THREADS = 128;
 constexpr int TILE = 128;  // slots a block takes: one ray a lane
 
 // 12 blocks an SM: 40 registers a thread, 48 warps in flight
-template <bool CLOSEST>
+template <bool CLOSEST, bool NORMALS>
 __global__ void __launch_bounds__(THREADS, 12)
 traverse_kernel(const float4* __restrict__ nodes, int n_rows,
                 const float4* __restrict__ tris,
                 const float* __restrict__ origin,
                 const float* __restrict__ direction,
                 const float* __restrict__ t_init, float* __restrict__ t_out,
-                int* __restrict__ hit_out, int n) {
+                int* __restrict__ hit_out, float* __restrict__ nrm_out,
+                int n) {
+  static_assert(CLOSEST || !NORMALS, "normals exist for closest hit only");
   __shared__ int s_list[CLOSEST ? 1 : TILE];
   __shared__ int s_count;
   int stack[STACK_DEPTH];  // this lane's row stack, in local memory
@@ -118,6 +129,7 @@ traverse_kernel(const float4* __restrict__ nodes, int n_rows,
     if (CLOSEST) {
       t_out[slot] = t_best;
       hit_out[slot] = hit;
+      if (NORMALS) store_normal(tris, hit, nrm_out, slot);
     } else if (hit) {
       hit_out[slot] = 1;  // compact_live wrote the slot's t and a flag 0
     }
@@ -130,22 +142,30 @@ traverse_kernel(const float4* __restrict__ nodes, int n_rows,
 // aligned: the kernel-side table (traverse_common.cuh); origin, direction
 // [n, 3] f32; t_init [n] f32 (closest: initial best distance; any hit: max
 // distance).  Writes t_out [n] f32 and hit_out [n] i32 (closest: leaf-order
-// triangle id or -1; any hit: 0/1).  Launches on `stream`; returns
-// cudaGetLastError().
+// triangle id or -1; any hit: 0/1), and for a closest hit with a non-null
+// nrm_out the hit triangle's cross(e1, e2) there ([n, 3] f32, zero on a
+// miss).  Launches on `stream`; returns cudaGetLastError().
 extern "C" int tyrant_traverse(const void* nodes, int n_rows, const void* tris,
                                const float* origin, const float* direction,
                                const float* t_init, float* t_out, int* hit_out,
-                               int n, int closest, void* stream) {
+                               float* nrm_out, int n, int closest,
+                               void* stream) {
   if (n <= 0) return 0;
   const float4* nd = static_cast<const float4*>(nodes);
   const float4* tr = static_cast<const float4*>(tris);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int grid = (n + TILE - 1) / TILE;
-  if (closest)
-    traverse_kernel<true><<<grid, THREADS, 0, s>>>(
-        nd, n_rows, tr, origin, direction, t_init, t_out, hit_out, n);
+  if (closest && nrm_out)
+    traverse_kernel<true, true><<<grid, THREADS, 0, s>>>(
+        nd, n_rows, tr, origin, direction, t_init, t_out, hit_out, nrm_out,
+        n);
+  else if (closest)
+    traverse_kernel<true, false><<<grid, THREADS, 0, s>>>(
+        nd, n_rows, tr, origin, direction, t_init, t_out, hit_out, nullptr,
+        n);
   else
-    traverse_kernel<false><<<grid, THREADS, 0, s>>>(
-        nd, n_rows, tr, origin, direction, t_init, t_out, hit_out, n);
+    traverse_kernel<false, false><<<grid, THREADS, 0, s>>>(
+        nd, n_rows, tr, origin, direction, t_init, t_out, hit_out, nullptr,
+        n);
   return (int)cudaGetLastError();
 }

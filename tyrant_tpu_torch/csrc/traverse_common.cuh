@@ -164,6 +164,29 @@ __device__ __forceinline__ void leaf(const float4* __restrict__ tris, int tag,
   }
 }
 
+// The hit triangle's unnormalised geometric normal cross(e1, e2), read
+// once from its 48-byte record after the walk (e1 = u.w v.x v.y, e2 = v.z
+// v.w w.x), or zero without a hit; each component rounds as two products
+// and a difference, like ops/traverse.py:hit_normals.
+__device__ __forceinline__ void store_normal(const float4* __restrict__ tris,
+                                             int hit,
+                                             float* __restrict__ nrm_out,
+                                             int slot) {
+  float nx = 0.0f, ny = 0.0f, nz = 0.0f;
+  if (hit >= 0) {
+    const float4* __restrict__ p = tris + 3 * (size_t)hit;
+    const float4 u = __ldg(p);
+    const float4 v = __ldg(p + 1);
+    const float4 w = __ldg(p + 2);
+    nx = v.x * w.x - v.y * v.w;
+    ny = v.y * v.z - u.w * w.x;
+    nz = u.w * v.w - v.x * v.z;
+  }
+  nrm_out[3 * slot + 0] = nx;
+  nrm_out[3 * slot + 1] = ny;
+  nrm_out[3 * slot + 2] = nz;
+}
+
 // Live-slot compaction of an any-hit queue: the block's tile of TILE slots
 // from `base`.  Reads only the max distances.  Every slot's result is
 // written here, coalesced (t_out = its max distance, flag 0; a walk that

@@ -44,6 +44,11 @@
 //    walk); persistent blocks striding over the packets (the hardware's
 //    block scheduler balances a packet a warp better).
 //
+// The normals output (closest hit, NORMALS) is the mono kernel's: a lane
+// reads its winner's triangle record once after the packet's walk
+// (store_normal, traverse_common.cuh) instead of carrying three floats
+// through every leaf pass as the Pallas kernel does.
+//
 // Per lane the arithmetic is the mono kernel's (traverse_common.cuh): the
 // same slab test with NaN-propagating max/min, the same Möller-Trumbore
 // with det >= 1e-7 culling, the same EPS accept rules slot by slot, built
@@ -60,13 +65,14 @@ using namespace tyrant;
 constexpr int WTHREADS = 128;  // 4 packets walking a block
 
 // One packet: each lane walks its slot `slot` when `valid`.
-template <bool CLOSEST>
+template <bool CLOSEST, bool NORMALS>
 __device__ __forceinline__ void walk_packet(
     const float4* __restrict__ nodes, int n_rows,
     const float4* __restrict__ tris,
     const float* __restrict__ origin, const float* __restrict__ direction,
     const float* __restrict__ t_init, float* __restrict__ t_out,
-    int* __restrict__ hit_out, int slot, bool valid) {
+    int* __restrict__ hit_out, float* __restrict__ nrm_out, int slot,
+    bool valid) {
   const float limit = valid ? t_init[slot] : 0.0f;
   float t_best = limit;
   int hit = CLOSEST ? -1 : 0;
@@ -131,6 +137,7 @@ __device__ __forceinline__ void walk_packet(
     if (CLOSEST) {
       t_out[slot] = t_best;
       hit_out[slot] = hit;
+      if (NORMALS) store_normal(tris, hit, nrm_out, slot);
     } else {
       t_out[slot] = limit;
       hit_out[slot] = hit;
@@ -138,7 +145,7 @@ __device__ __forceinline__ void walk_packet(
   }
 }
 
-template <bool CLOSEST>
+template <bool CLOSEST, bool NORMALS>
 __global__ void __launch_bounds__(WTHREADS)
 traverse_wave_kernel(const float4* __restrict__ nodes, int n_rows,
                      const float4* __restrict__ tris,
@@ -146,14 +153,16 @@ traverse_wave_kernel(const float4* __restrict__ nodes, int n_rows,
                      const float* __restrict__ direction,
                      const float* __restrict__ t_init,
                      float* __restrict__ t_out, int* __restrict__ hit_out,
-                     int n) {
+                     float* __restrict__ nrm_out, int n) {
+  static_assert(CLOSEST || !NORMALS, "normals exist for closest hit only");
   const int lane = threadIdx.x & 31;
   // a packet is 32 consecutive slots
   const int slot = (blockIdx.x * (WTHREADS / 32) + (threadIdx.x >> 5)) * 32
                    + lane;
   if (slot - lane < n)
-    walk_packet<CLOSEST>(nodes, n_rows, tris, origin, direction, t_init,
-                         t_out, hit_out, slot, slot < n);
+    walk_packet<CLOSEST, NORMALS>(nodes, n_rows, tris, origin, direction,
+                                  t_init, t_out, hit_out, nrm_out, slot,
+                                  slot < n);
 }
 
 }  // namespace
@@ -162,24 +171,31 @@ traverse_wave_kernel(const float4* __restrict__ nodes, int n_rows,
 // 64-byte aligned, and tris [T, 12] f32, 16-byte aligned; origin, direction
 // [n, 3] f32; t_init [n] f32 (closest: initial best distance; any hit: max
 // distance).  Writes t_out [n] f32 and hit_out [n] i32 (closest: leaf-order
-// triangle id or -1; any hit: 0/1).  Launches on `stream`; returns
-// cudaGetLastError().
+// triangle id or -1; any hit: 0/1), and for a closest hit with a non-null
+// nrm_out the hit triangle's cross(e1, e2) there ([n, 3] f32, zero on a
+// miss).  Launches on `stream`; returns cudaGetLastError().
 extern "C" int tyrant_traverse_wave(const void* nodes, int n_rows,
                                     const void* tris, const float* origin,
                                     const float* direction,
                                     const float* t_init, float* t_out,
-                                    int* hit_out, int n, int closest,
-                                    void* stream) {
+                                    int* hit_out, float* nrm_out, int n,
+                                    int closest, void* stream) {
   if (n <= 0) return 0;
   const float4* nd = static_cast<const float4*>(nodes);
   const float4* tr = static_cast<const float4*>(tris);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int grid = (n + WTHREADS - 1) / WTHREADS;  // a packet a warp
-  if (closest)
-    traverse_wave_kernel<true><<<grid, WTHREADS, 0, s>>>(
-        nd, n_rows, tr, origin, direction, t_init, t_out, hit_out, n);
+  if (closest && nrm_out)
+    traverse_wave_kernel<true, true><<<grid, WTHREADS, 0, s>>>(
+        nd, n_rows, tr, origin, direction, t_init, t_out, hit_out, nrm_out,
+        n);
+  else if (closest)
+    traverse_wave_kernel<true, false><<<grid, WTHREADS, 0, s>>>(
+        nd, n_rows, tr, origin, direction, t_init, t_out, hit_out, nullptr,
+        n);
   else
-    traverse_wave_kernel<false><<<grid, WTHREADS, 0, s>>>(
-        nd, n_rows, tr, origin, direction, t_init, t_out, hit_out, n);
+    traverse_wave_kernel<false, false><<<grid, WTHREADS, 0, s>>>(
+        nd, n_rows, tr, origin, direction, t_init, t_out, hit_out, nullptr,
+        n);
   return (int)cudaGetLastError();
 }

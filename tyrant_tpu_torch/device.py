@@ -4,6 +4,8 @@ CPU."""
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -20,3 +22,12 @@ def resolve(device) -> torch.device:
     if dev.type == "cuda":
         require_cuda()
     return dev
+
+
+@functools.lru_cache(maxsize=None)
+def constant(values: tuple, device: torch.device,
+             dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """A constant tensor of ``values``, made once per device and dtype and
+    kept: a step that reads it copies nothing from the host, which a
+    captured CUDA graph could not do.  Never write into it."""
+    return torch.tensor(values, dtype=dtype, device=device)

@@ -20,7 +20,8 @@ from .scene.scene import SceneData, scene_data
 SCENE_LEAVES = ("node_packed", "miss_flat", "tri_packed", "leaf_packed",
                 "tri_shade", "sphere_table", "tri_attr", "sphere_center")
 # the SceneData flags the render step gates its terms on
-SCENE_FLAGS = ("smooth_normals", "has_ggx", "has_rrefr", "has_var_ior")
+SCENE_FLAGS = ("smooth_normals", "has_ggx", "has_rrefr", "has_var_ior",
+               "tri_default_mat")
 STATE_FIELDS = ("accum", "origin", "direction", "direct", "pending", "pixel",
                 "bounces", "last_specular", "n_carried", "start_position",
                 "frame", "shadow_rays")

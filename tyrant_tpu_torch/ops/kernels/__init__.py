@@ -4,3 +4,28 @@ Each wrapper launches its kernel for CUDA tensors (or raises) and takes
 the plain version only for CPU tensors.  Each counts its kernel launches
 in a plain integer attribute, ``launches``, so a run can show that it went
 through the kernel."""
+
+# the launch counters, by name: (module, attribute)
+_COUNTERS = {"traverse": ("traverse", "launches"),
+             "traverse_wave": ("traverse", "launches_wave"),
+             "traverse_normals": ("traverse", "launches_normals"),
+             "traverse_wave_normals": ("traverse", "launches_wave_normals"),
+             "accumulate": ("accum", "launches"),
+             "stream": ("stream", "launches")}
+
+
+def _module(name: str):
+    import importlib
+    return importlib.import_module(f"{__name__}.{name}")
+
+
+def launch_counts() -> dict[str, int]:
+    """Every wrapper's launch counter, by name."""
+    return {k: getattr(_module(m), a) for k, (m, a) in _COUNTERS.items()}
+
+
+def set_launch_counts(counts: dict[str, int]) -> None:
+    """Set the named counters (0 resets them)."""
+    for k, v in counts.items():
+        m, a = _COUNTERS[k]
+        setattr(_module(m), a, v)

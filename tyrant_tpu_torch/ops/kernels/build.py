@@ -5,9 +5,11 @@ together, and one more nvcc links the objects.
 
 The library lands in ``build/tyrant_tpu_torch/`` at the root of the
 checkout, named by a hash of the sources and the flags, so an edited
-source rebuilds and an unchanged one loads at once.  Nothing is built at
-import time: the first kernel launch builds.  A missing or failing nvcc
-raises with nvcc's own error output.
+source rebuilds and an unchanged one loads at once; beside it, a ``.log``
+holds ptxas's resource usage of every kernel (``--resource-usage``), which
+:func:`registers` reads.  Nothing is built at import time: the first
+kernel launch builds.  A missing or failing nvcc raises with nvcc's own
+error output.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -30,6 +33,7 @@ BUILD_DIR = _PKG.parent / "build" / "tyrant_tpu_torch"
 # flushed denormals).
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC"]
+COMPILE_FLAGS = ["--resource-usage"]  # each source's compile only
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -55,16 +59,16 @@ def _sources() -> list[Path]:
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + COMPILE_FLAGS).encode())
     for src in _sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libtyrant_kernels_{h.hexdigest()[:16]}.so"
 
 
-def _run_all(cmds: list[list[str]]) -> None:
+def _run_all(cmds: list[list[str]]) -> str:
     """Run the commands side by side; raise with the first failure's
-    output."""
+    output, else return their output (stdout and stderr) in order."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)
              for c in cmds]
@@ -73,6 +77,7 @@ def _run_all(cmds: list[list[str]]) -> None:
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
                                f"{' '.join(cmd)}\n{err}{out}")
+    return "".join(out + err for out, err in outs)
 
 
 def _compile(out: Path) -> None:
@@ -82,12 +87,59 @@ def _compile(out: Path) -> None:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
         objs = [str(Path(tmp) / f"{src.stem}.o") for src in _sources()]
-        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
-                  for src, obj in zip(_sources(), objs)])
+        usage = _run_all([[nvcc, *NVCC_FLAGS, *COMPILE_FLAGS, "-c", "-o",
+                           obj, str(src)]
+                          for src, obj in zip(_sources(), objs)])
         lib = str(Path(tmp) / out.name)
         _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
+        out.with_suffix(".log").write_text(usage)
         os.replace(lib, out)
     build_seconds = time.perf_counter() - t0
+
+
+def _kernel_name(mangled: str) -> str:
+    """A kernel's readable name from its mangled one: the innermost name
+    and its bool template arguments, as in ``traverse_kernel<true,false>``."""
+    s = mangled[3:] if mangled.startswith("_ZN") else mangled[2:]
+    name = mangled
+    while (m := re.match(r"\d+", s)):
+        k = int(m.group())
+        name, s = s[m.end():m.end() + k], s[m.end() + k:]
+    args = re.match(r"I((?:Lb[01]E)+)E", s)
+    if not args:
+        return name
+    flags = re.findall(r"Lb([01])E", args.group(1))
+    return f"{name}<{','.join('true' if f == '1' else 'false' for f in flags)}>"
+
+
+def registers(path: Path | None = None) -> dict[str, dict]:
+    """{kernel: {"registers": a thread, "spill_stores": bytes,
+    "spill_loads": bytes}} from the build log of the library at ``path``
+    (default: this checkout's), as ptxas reports them under
+    ``--resource-usage`` (spills where it reports them); empty when the
+    log is missing."""
+    log_path = (path or library_path()).with_suffix(".log")
+    if not log_path.exists():
+        return {}
+    out, current = {}, None
+    for line in log_path.read_text().splitlines():
+        fn = re.search(r"entry function '(\S+)'", line) \
+            or re.search(r"Function (\S+?):?\s*$", line)
+        if fn and "properties" not in line:
+            current = out.setdefault(_kernel_name(fn.group(1)), {})
+            continue
+        if current is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        if spill:
+            current["spill_stores"] = int(spill.group(1))
+            current["spill_loads"] = int(spill.group(2))
+        reg = re.search(r"REG:(\d+)", line) \
+            or re.search(r"Used (\d+) registers", line)
+        if reg:
+            current["registers"] = int(reg.group(1))
+    return out
 
 
 def load() -> ctypes.CDLL:
@@ -107,7 +159,7 @@ def load() -> ctypes.CDLL:
 def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.tyrant_traverse, lib.tyrant_traverse_wave):
-        fn.argtypes = [p, i, p, p, p, p, p, p, i, i, p]
+        fn.argtypes = [p, i, p, p, p, p, p, p, p, i, i, p]
         fn.restype = i
     lib.tyrant_accumulate.argtypes = [p, p, p, i, i, i, p]
     lib.tyrant_accumulate.restype = i

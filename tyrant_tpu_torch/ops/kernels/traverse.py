@@ -69,9 +69,13 @@ _R_TRI = _L_TRI + 9 * LEAF_WIDTH
 
 # kernel launches since the last reset, per generation (closest and any
 # hit alike): ``launches`` for traverse.cu, ``launches_wave`` for
-# traverse_wave.cu; plain-version calls are not counted
+# traverse_wave.cu; of those, the launches with the normals output in
+# ``launches_normals`` and ``launches_wave_normals``; plain-version calls
+# are not counted
 launches = 0
 launches_wave = 0
+launches_normals = 0
+launches_wave_normals = 0
 
 
 def build_rows(bvh: plain.BVHDevice) -> np.ndarray:
@@ -242,8 +246,8 @@ def check_kernel_tables(tables: PacketTables) -> None:
 
 
 def _launch(origin, direction, t, tables: PacketTables, closest: bool,
-            wave: bool):
-    global launches, launches_wave
+            wave: bool, normals: bool = False):
+    global launches, launches_wave, launches_normals, launches_wave_normals
     nodes, tris = tables.nodes, tables.tris
     check_kernel_tables(tables)
     lib = build.load()
@@ -251,36 +255,46 @@ def _launch(origin, direction, t, tables: PacketTables, closest: bool,
     n = origin.shape[0]
     t_out = torch.empty_like(t)
     hit = torch.empty((n,), dtype=torch.int32, device=origin.device)
+    nrm = torch.empty((n, 3), dtype=torch.float32, device=origin.device) \
+        if normals else None
     stream = torch.cuda.current_stream(origin.device).cuda_stream
     err = fn(nodes.data_ptr(), nodes.shape[0], tris.data_ptr(),
              origin.data_ptr(),
              direction.data_ptr(), t.data_ptr(), t_out.data_ptr(),
-             hit.data_ptr(), n, int(closest), stream)
+             hit.data_ptr(), None if nrm is None else nrm.data_ptr(), n,
+             int(closest), stream)
     build.check(lib, err, f"{fn.__name__} launch")
     if wave:
         launches_wave += 1
+        launches_wave_normals += normals
     else:
         launches += 1
-    return t_out, hit
+        launches_normals += normals
+    return (t_out, hit, nrm) if normals else (t_out, hit)
 
 
 def closest_hit_packets(origin, direction, tables: PacketTables,
-                        t_init=None, wave: bool = False):
+                        t_init=None, wave: bool = False,
+                        normals: bool = False):
     """Closest hit.  origin/direction [N, 3] f32; t_init optional [N] f32.
     Returns (t [N], leaf-order prim id [N] i32), with t == t_init and id
-    -1 where nothing beats t_init.  ``wave``: the warp-packet kernel
-    instead of the one-ray-per-thread kernel (CUDA tensors only)."""
+    -1 where nothing beats t_init; with ``normals`` also the hit
+    triangle's unnormalised cross(e1, e2) [N, 3] f32, zero where the id is
+    -1 (:func:`tyrant_tpu_torch.ops.traverse.hit_normals`).  ``wave``: the
+    warp-packet kernel instead of the one-ray-per-thread kernel (CUDA
+    tensors only)."""
     n = origin.shape[0]
     if t_init is None:
         t_init = torch.full((n,), VERY_FAR, dtype=torch.float32,
                             device=origin.device)
     _check_rays(origin, direction, t_init, tables)
     if origin.device.type == "cpu":
-        return plain.closest_hit(origin, direction, tables.bvh, t_init)
+        return plain.closest_hit(origin, direction, tables.bvh, t_init,
+                                 normals=normals)
     if origin.device.type != "cuda":
         raise ValueError(f"no traversal for device {origin.device}")
     return _launch(origin, direction, t_init, tables, closest=True,
-                   wave=wave)
+                   wave=wave, normals=normals)
 
 
 def any_hit_packets(origin, direction, max_dist, tables: PacketTables,

@@ -16,26 +16,32 @@ _GOLDEN = 0x9E3779B9
 _INV_2_32 = 2.3283064365387e-10
 
 
-def _u32(p, like: torch.Tensor | None = None) -> torch.Tensor:
+def _u32(p):
+    """A tensor as int64 in [0, 2^32); a Python int stays a Python int, so
+    that nothing is copied from the host inside a step."""
     if isinstance(p, torch.Tensor):
         return p.to(torch.int64) & _MASK
-    device = like.device if like is not None else None
-    return torch.tensor(int(p) & _MASK, dtype=torch.int64, device=device)
+    return int(p) & _MASK
 
 
 def seed_from(*parts) -> torch.Tensor:
-    """A well-mixed uint32 seed (as int64) from integer components."""
+    """A well-mixed uint32 seed (as int64) from integer components.  The
+    hash runs on Python ints up to the first tensor component, on int64
+    tensors after it: the same exact integer arithmetic either way."""
     like = next((p for p in parts if isinstance(p, torch.Tensor)), None)
-    h = _u32(_GOLDEN, like)
+    h = _GOLDEN
     for p in parts:
-        p = _u32(p, like)
-        h = h ^ ((p + _GOLDEN + ((h << 6) & _MASK) + (h >> 2)) & _MASK)
+        p = _u32(p)
+        h = ((p + _GOLDEN + ((h << 6) & _MASK) + (h >> 2)) & _MASK) ^ h
         # wang hash round
         h = (h ^ 61) ^ (h >> 16)
         h = (h * 9) & _MASK
         h = h ^ (h >> 4)
         h = (h * 0x27D4EB2D) & _MASK
         h = h ^ (h >> 15)
+    if not isinstance(h, torch.Tensor):
+        h = torch.tensor(h, dtype=torch.int64,
+                         device=None if like is None else like.device)
     # xorshift has a fixed point at 0; nudge.
     return torch.where(h == 0, torch.full_like(h, 0x1337C0DE), h)
 

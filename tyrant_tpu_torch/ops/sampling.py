@@ -6,6 +6,7 @@ from __future__ import annotations
 import torch
 
 from ..config import PI
+from ..device import constant
 
 from . import rng
 
@@ -31,8 +32,8 @@ def orthonormal_basis(w):
     """(u, v) completing ``w`` to an orthonormal basis: the Y axis when
     |w.x| > 0.9, else the X axis, then Gram-Schmidt."""
     pick_y = torch.abs(w[..., 0]) > 0.9
-    ey = torch.tensor([0.0, 1.0, 0.0], dtype=w.dtype, device=w.device)
-    ex = torch.tensor([1.0, 0.0, 0.0], dtype=w.dtype, device=w.device)
+    ey = constant((0.0, 1.0, 0.0), w.device, w.dtype)
+    ex = constant((1.0, 0.0, 0.0), w.device, w.dtype)
     a = torch.where(pick_y[..., None], ey, ex).expand_as(w)
     u = normalize(cross(a, w))
     v = cross(w, u)
@@ -168,7 +169,7 @@ def ggx_vndf_sample_from_uniforms(view, normal, alpha, u1, u2):
     # orthonormal frame around the stretched view
     lensq = h[..., 0] * h[..., 0] + h[..., 1] * h[..., 1]
     inv_len = 1.0 / torch.sqrt(torch.clamp(lensq, min=1e-20))
-    ex = torch.tensor([1.0, 0.0, 0.0], dtype=h.dtype, device=h.device)
+    ex = constant((1.0, 0.0, 0.0), h.device, h.dtype)
     t1 = torch.where((lensq > 1e-16)[..., None],
                      torch.stack([-h[..., 1] * inv_len, h[..., 0] * inv_len,
                                   torch.zeros_like(inv_len)], -1),

@@ -207,18 +207,36 @@ def _walk(origin, direction, limit, bvh: BVHDevice, closest: bool, live,
     return (t_out, id_out) if closest else occ_out
 
 
+def hit_normals(tri_packed, hit_id):
+    """The unnormalised geometric normal cross(e1, e2) [N, 3] of each
+    ray's hit triangle (``hit_id``, leaf order, into ``tri_packed``), zero
+    where ``hit_id`` is -1.  Each component is two products and a
+    difference, rounded one at a time in the traversal kernels' order, so
+    their normals output equals it bit for bit."""
+    tri = tri_packed[torch.clamp(hit_id, min=0).long()]
+    e1x, e1y, e1z = tri[:, 3], tri[:, 4], tri[:, 5]
+    e2x, e2y, e2z = tri[:, 6], tri[:, 7], tri[:, 8]
+    nrm = torch.stack([e1y * e2z - e1z * e2y, e1z * e2x - e1x * e2z,
+                       e1x * e2y - e1y * e2x], dim=1)
+    return torch.where((hit_id >= 0)[:, None], nrm, torch.zeros_like(nrm))
+
+
 def closest_hit(origin, direction, bvh: BVHDevice, t_init=None,
-                stats: dict | None = None):
+                stats: dict | None = None, normals: bool = False):
     """Closest hit.  origin/direction [N, 3]; t_init optional [N] initial
     closest distance (the sphere pass).  Returns (t [N], prim_id [N] i32)
-    with t == t_init (or VERY_FAR) and prim_id == -1 on a miss.
+    with t == t_init (or VERY_FAR) and prim_id == -1 on a miss, and with
+    ``normals`` a third output, the hit triangle's :func:`hit_normals`.
     ``stats``: see :func:`_walk`."""
     n = origin.shape[0]
     if t_init is None:
         t_init = torch.full((n,), VERY_FAR, dtype=torch.float32,
                             device=origin.device)
     live = torch.ones((n,), dtype=torch.bool, device=origin.device)
-    return _walk(origin, direction, t_init, bvh, True, live, stats)
+    t, hit_id = _walk(origin, direction, t_init, bvh, True, live, stats)
+    if normals:
+        return t, hit_id, hit_normals(bvh.tri_packed, hit_id)
+    return t, hit_id
 
 
 def any_hit(origin, direction, max_dist, bvh: BVHDevice, active=None,

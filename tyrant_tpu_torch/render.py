@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
@@ -39,7 +40,7 @@ from .camera import Camera, CameraParams
 from .config import EPSILON, INV_PI, PI, VERY_FAR, RenderConfig
 from .denoise import atrous_denoise
 from .device import resolve
-from .ops import rng
+from .ops import kernels, rng
 from .ops.intersect import intersect_spheres, ray_sphere
 from .ops.kernels.accum import accumulate_terminated, sentinel
 from .ops.kernels.traverse import (PacketTables, any_hit_packets,
@@ -48,7 +49,7 @@ from .ops.sampling import (concentric_sample_disk, cone_sample,
                            cosine_hemisphere_sample, dot, ggx_d_vec, ggx_g1,
                            ggx_vndf_sample_from_uniforms, normalize,
                            phong_lobe_sample, reflect, sphere_surface_sample)
-from .ops.tonemap import bloom, tonemap_image
+from .ops.tonemap import bloom, to_uint8, tonemap_image
 from .scene.scene import (DIFF, GGX, LIGHT, PHONG, REFR, RREFR, SPEC, Scene,
                           SceneData)
 
@@ -62,10 +63,10 @@ _PORTED_FIELDS = {"width", "height", "num_rays", "max_bounces", "epsilon",
                   "sky", "bvh", "focal_distance_scale", "raygen_order",
                   "tonemap", "exposure", "packet_kernel_mode", "denoise",
                   "denoise_iterations", "bloom_strength", "bloom_threshold",
-                  "bloom_radius", "dispersion"}
+                  "bloom_radius", "dispersion", "use_kernel_normals",
+                  "fuse_step_chains"}
 _IGNORED_SELECTORS = {"use_packet_kernel", "use_accum_kernel",
-                      "adaptive_connect", "adaptive_connect_frac",
-                      "fuse_step_chains", "use_kernel_normals"}
+                      "adaptive_connect", "adaptive_connect_frac"}
 
 
 def check_config(cfg: RenderConfig) -> None:
@@ -215,15 +216,19 @@ def sphere_pass(origin, direction, scene: SceneData):
 
 
 def _intersect_scene(origin, direction, scene: SceneData,
-                     tables: PacketTables, wave: bool = False):
+                     tables: PacketTables, wave: bool = False,
+                     normals: bool = False):
     """Spheres first (:func:`sphere_pass`), then the BVH seeded with the
     sphere distance (a triangle wins only when closer by more than
-    epsilon).  Returns (t, identifier, is_triangle)."""
+    epsilon).  Returns (t, identifier, is_triangle), and with ``normals``
+    a fourth output from the traversal: the hit triangle's unnormalised
+    cross(e1, e2), zero where no triangle won."""
     t_sph, sph_id = sphere_pass(origin, direction, scene)
-    t, tri_id = closest_hit_packets(origin, direction, tables, t_init=t_sph,
-                                    wave=wave)
+    t, tri_id, *nrm = closest_hit_packets(origin, direction, tables,
+                                          t_init=t_sph, wave=wave,
+                                          normals=normals)
     is_tri = tri_id >= 0
-    return t, torch.where(is_tri, tri_id, sph_id), is_tri
+    return (t, torch.where(is_tri, tri_id, sph_id), is_tri, *nrm)
 
 
 # --------------------------------------------------------------------------
@@ -248,23 +253,36 @@ def _smooth_normal(scene: SceneData, tid, p, normal_tri):
     return torch.where(_col(arow[:, 25] > 0.5), ns / _col(nlen), normal_tri)
 
 
-def _shade_surface_fetch(scene: SceneData, o, ident, is_tri, hit):
+def _shade_surface_fetch(scene: SceneData, o, ident, is_tri, hit,
+                         tri_normal=None):
     """Hit-surface data: sphere rows by index, triangle rows from the
     tri_shade table (and the tri_attr row under smooth normals).  Returns
     (is_sphere, srow, normal, refl_tri, color_tri, rough_tri); rough_tri
-    is tri_shade lane 7 (roughness, or a REFR triangle's IOR)."""
+    is tri_shade lane 7 (roughness, or a REFR triangle's IOR).
+
+    With the traversal's ``tri_normal`` (unnormalised cross(e1, e2)) on a
+    ``tri_default_mat`` scene, the triangle side needs no gather: the
+    normal is ``tri_normal`` normalised and the material the default one
+    (DIFF, colour 1, roughness 0.3, as Python scalars)."""
     sid = torch.clamp(ident, 0, scene.sphere_table.shape[0] - 1).long()
     is_sphere = hit & ~is_tri
     srow = scene.sphere_table[sid]
     normal_sphere = (o - srow[:, 0:3]) / _col(srow[:, 3])
-    tid = torch.clamp(ident, 0, scene.tri_shade.shape[0] - 1).long()
-    trow = scene.tri_shade[tid]
-    normal_tri = trow[:, 0:3]
-    if scene.smooth_normals:
-        normal_tri = _smooth_normal(scene, tid, o, normal_tri)
+    if tri_normal is not None and scene.tri_default_mat:
+        nlen = torch.sqrt(torch.clamp(dot(tri_normal, tri_normal),
+                                      min=1e-30))
+        normal_tri = tri_normal / _col(torch.clamp(nlen, min=1e-30))
+        refl_tri, color_tri, rough_tri = DIFF, 1.0, 0.3
+    else:
+        tid = torch.clamp(ident, 0, scene.tri_shade.shape[0] - 1).long()
+        trow = scene.tri_shade[tid]
+        normal_tri = trow[:, 0:3]
+        if scene.smooth_normals:
+            normal_tri = _smooth_normal(scene, tid, o, normal_tri)
+        refl_tri = trow[:, 3].to(torch.int32)
+        color_tri, rough_tri = trow[:, 4:7], trow[:, 7]
     normal = torch.where(_col(is_sphere), normal_sphere, normal_tri)
-    return (is_sphere, srow, normal, trow[:, 3].to(torch.int32), trow[:, 4:7],
-            trow[:, 7])
+    return is_sphere, srow, normal, refl_tri, color_tri, rough_tri
 
 
 def _ggx_eval(normal, view, light_dir, alpha, f0):
@@ -565,9 +583,11 @@ def _shade_bounce(cfg: RenderConfig, scene: SceneData, rays, d, o, normal,
 
 
 def _shade(cfg: RenderConfig, scene: SceneData, sky_params: skymod.SkyParams,
-           sun_dir, rays, t, ident, is_tri, frame):
+           sun_dir, rays, t, ident, is_tri, frame, tri_normal=None):
     """Shade every queue slot.  Returns (color, survive, next_rays,
-    shadow)."""
+    shadow).  ``tri_normal``: the traversal's hit normals, which a
+    ``tri_default_mat`` scene shades from without the tri_shade gather
+    (:func:`_shade_surface_fetch`)."""
     n = cfg.num_rays
     eps = cfg.epsilon
     d = rays["direction"]
@@ -578,7 +598,7 @@ def _shade(cfg: RenderConfig, scene: SceneData, sky_params: skymod.SkyParams,
     o = rays["origin"] + d * _col(t_safe)
 
     is_sphere, srow, normal, refl_tri, color_tri, rough_tri = \
-        _shade_surface_fetch(scene, o, ident, is_tri, hit)
+        _shade_surface_fetch(scene, o, ident, is_tri, hit, tri_normal)
     refl = torch.where(is_sphere, srow[:, 10].to(torch.int32), refl_tri)
     refl = torch.where(hit, refl, torch.full_like(refl, DIFF))
     obj_color = torch.where(_col(is_sphere), srow[:, 4:7], color_tri)
@@ -771,17 +791,19 @@ def render_step(state: RenderState, scene: SceneData, camera: CameraParams,
         generated = n - state.n_carried
         start_next = (state.start_position + generated) % n_pix
 
-    # 2. extend
+    # 2. extend (with the hit normals under use_kernel_normals, on a scene
+    # whose triangles all have the default material)
+    kernel_normals = cfg.use_kernel_normals == "on" and scene.tri_default_mat
     with record_function("extend"):
-        t, ident, is_tri = _intersect_scene(rays["origin"], rays["direction"],
-                                            scene, tables,
-                                            wave=_pick_wave(cfg, "extend"))
+        t, ident, is_tri, *tri_normal = _intersect_scene(
+            rays["origin"], rays["direction"], scene, tables,
+            wave=_pick_wave(cfg, "extend"), normals=kernel_normals)
 
     # 3. shade
     with record_function("shade"):
         color, survive, next_rays, shadow = _shade(
             cfg, scene, sky_params, sun_dir, rays, t, ident, is_tri,
-            state.frame)
+            state.frame, tri_normal=tri_normal[0] if tri_normal else None)
 
     # 4. connect
     with record_function("connect"):
@@ -820,6 +842,43 @@ def render_step(state: RenderState, scene: SceneData, camera: CameraParams,
         shadow_rays=state.shadow_rays + shadow["valid"].sum())
 
 
+class _Graph:
+    """One captured CUDA graph, its static outputs and the kernel launches
+    that each replay makes (the wrappers' counters, ``ops.kernels``)."""
+
+    def __init__(self, fn, device, what: str):
+        """Capture ``fn()``, which must read and write only tensors that
+        outlive the graph.  The capture runs on its own side stream; the
+        wrappers called in it launch nothing, so their counters are set
+        back.  Raises when the capture fails: nothing falls back to eager
+        launches."""
+        before = kernels.launch_counts()
+        self.graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(self.graph):
+                self.out = fn()
+        except Exception as e:
+            raise RuntimeError(
+                f"capturing {what} into a CUDA graph failed "
+                "(RenderConfig.fuse_step_chains='off' runs it eagerly)") from e
+        finally:
+            after = kernels.launch_counts()
+            kernels.set_launch_counts(before)
+        self.launches = {k: after[k] - before[k] for k in after
+                         if after[k] != before[k]}
+
+
+def _warm_up(fn, device):
+    """``fn()`` once, eagerly, on a side stream: the recipe before a
+    capture, so that no lazy set-up happens inside it."""
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        out = fn()
+    torch.cuda.current_stream(device).wait_stream(side)
+    return out
+
+
 class Renderer:
     """Host-side wrapper: device upload, accumulation reset on camera or
     sun movement, framebuffer resolve with the optional denoiser and
@@ -829,7 +888,18 @@ class Renderer:
     through the CUDA kernels, and raises when there is no CUDA device;
     ``device="cpu"`` runs it with the kernels' plain versions.  ``scene``
     is a host :class:`Scene` or, with ``tables``, a :class:`SceneData`
-    already on ``device``."""
+    already on ``device``.
+
+    ``cfg.fuse_step_chains`` "auto" or "on" on CUDA (the counterpart of
+    the JAX package's fused, jitted step): the step, the AOV pass and
+    ``image()`` each run as a captured CUDA graph, replayed, with the
+    state, the camera and the sun in static buffers that a pose or sun
+    change overwrites in place.  The first step runs eagerly as the
+    capture's warm-up; a capture that fails raises.  "off", and every CPU
+    renderer, run eagerly.  A replay adds nothing to the kernel wrappers'
+    launch counters: ``replayed_steps`` counts the steps replayed and
+    ``replayed_launches`` the kernel launches the replays made, by
+    counter name (``ops.kernels.launch_counts``)."""
 
     def __init__(self, scene, cfg: RenderConfig = RenderConfig(), *,
                  device="cuda", sun_position=(0.05, 0.3),
@@ -853,26 +923,109 @@ class Renderer:
         self._last_cam: CameraParams | None = None  # for the AOV pass
         self._aov_cache = None  # (pose, aovs)
         self.state = init_state(cfg, self.device)
+        self.captured = self.device.type == "cuda" and (
+            cfg.fuse_step_chains == "on" or cfg.fuse_step_chains == "auto")
+        self.replayed_steps = 0
+        self.replayed_launches: dict[str, int] = {}
+        self._graphs: dict = {}  # "step", "aov", ("image", denoise, uint8)
+        if self.captured:
+            # the static camera: one buffer, its fields are views
+            self._cam_buf = torch.zeros(14, dtype=torch.float32,
+                                        device=self.device)
+            b = self._cam_buf
+            self._cam = CameraParams(position=b[0:3], direction=b[3:6],
+                                     right=b[6:9], up=b[9:12],
+                                     focal_distance=b[12], lens_radius=b[13])
+            self._cam_vec = None  # the values in the buffer
+
+    def _reset(self):
+        if self.captured:  # the graphs read these very tensors
+            self.state.accum.zero_()
+            self.state.n_carried.zero_()
+        else:
+            self.state = reset_accumulation(self.state)
 
     def set_sun(self, sun_position):
         if tuple(sun_position) != self.sun_position:
             self.sun_position = tuple(sun_position)
-            self.sun_dir = skymod.sun_direction_from_position(
-                self.sun_position, self.device)
-            self.state = reset_accumulation(self.state)
+            sun = skymod.sun_direction_from_position(self.sun_position,
+                                                     self.device)
+            if self.captured:
+                self.sun_dir.copy_(sun)
+            else:
+                self.sun_dir = sun
+            self._reset()
 
     def step(self, camera: Camera, n_steps: int = 1) -> RenderState:
+        """``n_steps`` wavefront steps at ``camera``'s pose (a new pose
+        resets the accumulation first); returns ``self.state``.  When the
+        step is captured, that state's tensors are the graph's static
+        buffers, which the next step or reset overwrites: copy what must
+        outlive it."""
         pose = camera.pose_key()
         if self._last_pose is not None and pose != self._last_pose:
-            self.state = reset_accumulation(self.state)
+            self._reset()
         self._last_pose = pose
-        cam = camera.to_device(self.cfg, self.device)
-        self._last_cam = cam
+        if not self.captured:
+            cam = camera.to_device(self.cfg, self.device)
+            self._last_cam = cam
+            for _ in range(n_steps):
+                self.state = self._render_step(self.state, cam)
+            return self.state
+        self._set_camera(camera)
+        self._last_cam = self._cam
+        if "step" not in self._graphs and n_steps:
+            # one graph of one step: a replay costs microseconds, and on an
+            # H100 a graph of four steps (the JAX package's _CHAIN_LEN) ran
+            # no faster (chip_smoke.captured_step measures both)
+            _warm_up(self._static_step, self.device)  # a real step
+            self._graphs["step"] = _Graph(self._static_step, self.device,
+                                          "the render step")
+            n_steps -= 1
         for _ in range(n_steps):
-            self.state = render_step(self.state, self.scene, cam, self.sun_dir,
-                                     cfg=self.cfg, tables=self.tables,
-                                     sky_params=self.sky_params)
+            self._replay(self._graphs["step"])
+            self.replayed_steps += 1
         return self.state
+
+    def _set_camera(self, camera: Camera):
+        """The static camera's buffer from ``camera``: the values
+        ``Camera.to_device`` gives, in one copy from pinned memory that
+        does not wait for the device, made when they change."""
+        right, up = camera.basis(self.cfg)
+        vec = np.concatenate([np.asarray(x, np.float32).reshape(-1) for x in (
+            camera.position, camera.direction, right, up,
+            camera.focal_distance, camera.lens_radius)])
+        if self._cam_vec is None or not np.array_equal(vec, self._cam_vec):
+            self._cam_buf.copy_(torch.from_numpy(vec).pin_memory(),
+                                non_blocking=True)
+            self._cam_vec = vec
+
+    def _render_step(self, state, cam):
+        return render_step(state, self.scene, cam, self.sun_dir, cfg=self.cfg,
+                           tables=self.tables, sky_params=self.sky_params)
+
+    def _static_step(self):
+        """One step on the static buffers: the new state is copied into
+        them (the accumulation is updated in place already)."""
+        new = self._render_step(self.state, self._cam)
+        for f in dataclasses.fields(RenderState):
+            dst, src = getattr(self.state, f.name), getattr(new, f.name)
+            if dst is not src:
+                dst.copy_(src)
+
+    def _replay(self, g: _Graph):
+        g.graph.replay()
+        for k, v in g.launches.items():
+            self.replayed_launches[k] = self.replayed_launches.get(k, 0) + v
+
+    def _captured(self, key, fn, what: str) -> _Graph:
+        """The graph of ``fn`` under ``key``, captured after a warm-up on
+        first use."""
+        g = self._graphs.get(key)
+        if g is None:
+            _warm_up(fn, self.device)
+            g = self._graphs[key] = _Graph(fn, self.device, what)
+        return g
 
     def radiance(self) -> torch.Tensor:
         """Linear HDR radiance mean [H, W, 3]."""
@@ -880,35 +1033,58 @@ class Renderer:
         return (self.state.accum[:, :3] / counts).reshape(
             self.cfg.height, self.cfg.width, 3)
 
-    def image(self, denoise: bool | None = None) -> torch.Tensor:
+    def image(self, denoise: bool | None = None,
+              uint8: bool = False) -> torch.Tensor:
         """Display image [H, W, 3] in [0, 1]: the radiance mean, denoised
         when ``denoise`` (default: ``cfg.denoise == "on"``) and a pose was
         stepped, then bloomed when ``cfg.bloom_strength > 0``, then tone
-        mapped.  The accumulation buffer is untouched."""
+        mapped; with ``uint8``, ``to_uint8`` of it.  The accumulation
+        buffer is untouched.  When the renderer is captured, this is a
+        replay and the image the graph's static output, which the next
+        call overwrites."""
+        use_dn = (self.cfg.denoise == "on") if denoise is None else denoise
+        use_dn = use_dn and self._last_cam is not None
+        aovs = self._pose_aovs() if use_dn else None
+        if not self.captured:
+            return self._resolve(aovs, uint8)
+        g = self._captured(("image", use_dn, uint8),
+                           lambda: self._resolve(aovs, uint8), "image()")
+        self._replay(g)
+        return g.out
+
+    def _resolve(self, aovs, uint8: bool) -> torch.Tensor:
         cfg = self.cfg
-        use_dn = (cfg.denoise == "on") if denoise is None else denoise
         mean = self.radiance()
-        if use_dn and self._last_cam is not None:
-            aovs = self._pose_aovs()
+        if aovs is not None:
             mean = atrous_denoise(mean, aovs["albedo"], aovs["normal"],
                                   aovs["depth"],
                                   iterations=cfg.denoise_iterations)
         if cfg.bloom_strength > 0.0:
             mean = bloom(mean, cfg.bloom_strength, cfg.bloom_threshold,
                          cfg.bloom_radius)
-        return tonemap_image(mean, cfg.tonemap, cfg.exposure)
+        img = tonemap_image(mean, cfg.tonemap, cfg.exposure)
+        return to_uint8(img) if uint8 else img
 
     def aovs(self) -> dict:
-        """The AOV pass (:func:`render_aovs`) for the last stepped pose."""
+        """The AOV pass (:func:`render_aovs`) for the last stepped pose
+        (when captured, static buffers that the next pose's pass
+        overwrites)."""
         if self._last_cam is None:
             raise RuntimeError("step() once before requesting AOVs "
                                "(they are rendered for the last pose)")
         return self._pose_aovs()
 
     def _pose_aovs(self) -> dict:
-        """The AOV pass, cached per camera pose."""
+        """The AOV pass, run once per camera pose."""
         if self._aov_cache is None or self._aov_cache[0] != self._last_pose:
-            self._aov_cache = (self._last_pose,
-                               render_aovs(self.scene, self._last_cam,
-                                           self.cfg, self.tables))
+            if self.captured:
+                g = self._captured("aov", lambda: render_aovs(
+                    self.scene, self._cam, self.cfg, self.tables),
+                    "the AOV pass")
+                self._replay(g)
+                aovs = g.out
+            else:
+                aovs = render_aovs(self.scene, self._last_cam, self.cfg,
+                                   self.tables)
+            self._aov_cache = (self._last_pose, aovs)
         return self._aov_cache[1]

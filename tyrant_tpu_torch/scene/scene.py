@@ -159,6 +159,10 @@ class SceneData:
 
     The flags are host booleans; the render step gates each term on them
     in Python, so a scene without a feature issues no op for it.
+    ``tri_default_mat``: every triangle is the default material (DIFF,
+    colour 1, roughness 0.3: no per-triangle material or colour, no smooth
+    normals), so shade needs only a hit triangle's geometric normal, which
+    the traversal kernel can return (``use_kernel_normals``).
     """
 
     bvh: BVHDevice
@@ -173,6 +177,7 @@ class SceneData:
     has_ggx: bool = False
     has_rrefr: bool = False
     has_var_ior: bool = False
+    tri_default_mat: bool = False
 
     @property
     def n_spheres(self) -> int:
@@ -446,7 +451,9 @@ class Scene:
             has_ggx=bool((s.refl == GGX).any() or (tri_refl == GGX).any()),
             has_rrefr=bool((s.refl == RREFR).any()
                            or (tri_refl == RREFR).any()),
-            has_var_ior=has_var_ior)
+            has_var_ior=has_var_ior,
+            tri_default_mat=(self.tri_refl is None and self.tri_color is None
+                             and not has_smooth))
 
     def _attr_rows(self, rows: int) -> np.ndarray:
         """tri_attr [rows, 32] for smooth normals: the dual basis of the
@@ -481,7 +488,8 @@ class Scene:
 def scene_data(bvh: BVHDevice, tri_shade, sphere_table, device, *,
                n_spheres: int, tri_attr=None, smooth_normals: bool = False,
                has_ggx: bool = False, has_rrefr: bool = False,
-               has_var_ior: bool = False) -> SceneData:
+               has_var_ior: bool = False,
+               tri_default_mat: bool = False) -> SceneData:
     """SceneData from the numpy shade tables (shared by Scene.to_device and
     interop).  The sphere columns are the first ``n_spheres`` rows of
     sphere_table (a zero-sphere scene keeps one inert row there)."""
@@ -499,7 +507,8 @@ def scene_data(bvh: BVHDevice, tri_shade, sphere_table, device, *,
                      tri_shade=t(tri_shade), sphere_table=t(st),
                      tri_attr=t(tri_attr), smooth_normals=smooth_normals,
                      has_ggx=has_ggx, has_rrefr=has_rrefr,
-                     has_var_ior=has_var_ior)
+                     has_var_ior=has_var_ior,
+                     tri_default_mat=tri_default_mat)
 
 
 def _override(sc: Scene, spheres, envmap, delta_lights) -> Scene:

@@ -6,12 +6,13 @@ position mapping.  Directions are ``[..., 3]``; "up" is +Z."""
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
 
 from .config import PI, SkyConfig
-
+from .device import constant
 from .ops.sampling import dot, normalize
 
 K = (0.686, 0.678, 0.666)
@@ -30,12 +31,18 @@ class SkyParams:
         return math.cos(self.cfg.sun_size_degrees * PI / 180.0)
 
     def total_mie(self, device) -> torch.Tensor:
-        c = (0.2 * self.cfg.turbidity) * 10e-18
-        wl = torch.tensor(self.cfg.primary_wavelengths, dtype=torch.float32,
-                          device=device)
-        k = torch.tensor(K, dtype=torch.float32, device=device)
-        mie = 0.434 * c * PI * torch.pow((2.0 * PI) / wl, self.cfg.v - 2.0) * k
-        return mie * self.cfg.mie_coefficient
+        """The Mie coefficients [3], computed on ``device`` once per
+        device and kept (see :func:`~tyrant_tpu_torch.device.constant`)."""
+        return _total_mie(self.cfg, torch.device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _total_mie(cfg: SkyConfig, device: torch.device) -> torch.Tensor:
+    c = (0.2 * cfg.turbidity) * 10e-18
+    wl = constant(tuple(cfg.primary_wavelengths), device)
+    k = constant(K, device)
+    mie = 0.434 * c * PI * torch.pow((2.0 * PI) / wl, cfg.v - 2.0) * k
+    return mie * cfg.mie_coefficient
 
 
 def _from_spherical(p):
@@ -74,13 +81,13 @@ def _atmosphere_common(view_dir, sun_dir, params: SkyParams):
     """Returns (sun_e, fex, sky_term, cos_view_sun)."""
     cfg = params.cfg
     dev = view_dir.device
-    up = torch.tensor(UP, dtype=torch.float32, device=dev)
+    up = constant(UP, dev)
     cos_view_sun = dot(view_dir, sun_dir)
     cos_sun_up = dot(sun_dir, up)
     cos_up_view = dot(up, view_dir)
 
     sun_e = _sun_intensity(cos_sun_up, cfg)
-    rayleigh = torch.tensor(RAYLEIGH_AT_X, dtype=torch.float32, device=dev)
+    rayleigh = constant(RAYLEIGH_AT_X, dev)
     mie = params.total_mie(dev)
 
     zenith = torch.clamp(cos_up_view, min=0.0)
