@@ -40,6 +40,19 @@ each, the traversal kernels are held against the plain walk on the extend,
 shadow and AOV queues and the accumulation against its plain version on a
 step's queue.
 
+Last, the lights path on the main scene at full size, in two
+configurations written as a JSON description (and a procedural HDR sky
+as a PFM) into the same folder: "many" (4,096 of the terrain's triangles
+emissive, three emissive spheres, a point, a spot and a directional
+light, a 2048x1024 sky; MIS and power light picking by alias rows) and
+"few" (32 emissive triangles, the same spheres and delta lights, the sun
+and sky; power picking by the CDF, no MIS).  Each runs phase 3 eager and
+captured (the captured state bit for bit the eager one) and with the wave
+kernel, the traversal kernels on its extend, shadow and AOV queues (the
+shadow rays' finite, shrunk ranges toward emissive triangles, which are
+BVH geometry) and the accumulation on a step's queue, and a small render
+on the card against the CPU.
+
 Run from the root of the repository:
 
     python3 chip_smoke.py
@@ -1020,9 +1033,18 @@ def kernels_at_slice(ren, stream: bool = True, label: str = "slice") -> dict:
     maxd = torch.where(valid, shadow["max_dist"],
                        torch.zeros_like(shadow["max_dist"]))
     so, sd = shadow["origin"].contiguous(), shadow["direction"].contiguous()
+    # what the queue aims at: the sun (or the envmap) and directional
+    # lights at infinity, a sphere, a LIGHT triangle or a point or spot
+    # light at a finite distance
+    far = shadow["max_dist"] >= VERY_FAR
+    targets = dict(rays=int(valid.numel()), valid=int(valid.sum()),
+                   to_infinity=int((valid & far).sum()),
+                   finite=int((valid & ~far).sum()))
+    log(f"{label} shadow queue targets: {targets}")
     connect = check_queue(
-        f"{label} connect any hit ({int(valid.sum())} valid)", so, sd, maxd,
+        f"{label} connect any hit ({targets['valid']} valid)", so, sd, maxd,
         ren.tables, sc.bvh, closest=False)
+    connect["targets"] = targets
 
     ao, ad = tr.aov_primaries(camd, cfg)
     a_sph, _ = tr.sphere_pass(ao, ad, sc)
@@ -1124,7 +1146,8 @@ def states_equal(a, b) -> bool:
 
 
 def captured_step(scene, tables, cfg: RenderConfig,
-                  poses_run=(0, 1, 2)) -> dict:
+                  poses_run=(0, 1, 2), chain: bool = True,
+                  label: str = "") -> dict:
     """The main cell captured (``fuse_step_chains="auto"``) beside the
     eager step (``"off"``): both renderers step 3 times at pose 0, 2 at
     pose 1, then 1 after a sun change, and every RenderState field must
@@ -1151,13 +1174,15 @@ def captured_step(scene, tables, cfg: RenderConfig,
             getattr(eager.state, k), getattr(cap.state, k))]
         raise AssertionError(f"captured and eager states differ after 6 "
                              f"steps in: {bad}")
-    log(f"captured step: bit for bit the eager step on every RenderState "
-        f"field after 6 steps (a pose and a sun change between); "
+    log(f"{label}captured step: bit for bit the eager step on every "
+        f"RenderState field after 6 steps (a pose and a sun change between); "
         f"{cap.replayed_steps} replayed, launches by the replays "
         f"{cap.replayed_launches}")
     del eager
     cap.set_sun((0.05, 0.3))
-    poses, launches = phase3(cap, poses_run)
+    poses, launches = phase3(cap, poses_run, label)
+    if not chain:
+        return dict(equal_after_6=True, poses=poses, launches=launches)
     # the renderer's graph of one step against a graph of four (the JAX
     # package's _CHAIN_LEN), made here on the renderer's static buffers
     cam = camera_for_pose(0)
@@ -1342,16 +1367,25 @@ def flythrough(scene, tables, cfg: RenderConfig, n_frames: int = 40,
     return out
 
 
-def phase4(denoise_wave: bool = False) -> float:
+def phase4(denoise_wave: bool = False, light_case=None) -> float:
     """The card against the CPU at small size: the accumulation's
     resolve, or with ``denoise_wave`` the denoised display image rendered
-    with the wave kernel on the card."""
+    with the wave kernel on the card; with ``light_case`` = (name, spec)
+    on that lights configuration (:func:`light_scene`) with at most 64
+    LIGHT triangles and a 64x128 sky."""
     kw = dict(denoise="on", packet_kernel_mode="wave") if denoise_wave else {}
-    cfg = small_config(width=64, height=64, num_rays=16_384, **kw)
     v0, v1, v2 = terrain(n_quads=48, towers=4)
+    scene = Scene.from_triangles(v0, v1, v2)
+    if light_case is not None:
+        name, spec = light_case
+        scene, over, _ = light_scene(scene, name, SCENE_DIR / "small", dict(
+            spec, n_tri=min(spec["n_tri"], 64),
+            envmap=(64, 128) if spec["envmap"] else None))
+        kw.update(over)
+    cfg = small_config(width=64, height=64, num_rays=16_384, **kw)
     imgs = []
     for dev in ("cuda", "cpu"):
-        ren = tr.Renderer(Scene.from_triangles(v0, v1, v2), cfg, device=dev)
+        ren = tr.Renderer(scene, cfg, device=dev)
         ren.step(camera_for_pose(0), 6)
         imgs.append(ren.image().cpu() if denoise_wave
                     else resolve(ren.state.accum.cpu(), cfg.width, cfg.height))
@@ -1359,6 +1393,8 @@ def phase4(denoise_wave: bool = False) -> float:
             counts = ren.state.accum[:, 3].sum().item()
     mad = float((imgs[0] - imgs[1]).abs().mean())
     what = "denoised image() with wave" if denoise_wave else "resolve"
+    if light_case is not None:
+        what += f" of the lights path's {light_case[0]} scene"
     log(f"phase 4 card vs cpu at 64x64/16384 rays/6 steps, {what}: mean "
         f"|diff| {mad:.3g} ({counts:.0f} paths on the card)")
     if not mad < 0.03:
@@ -1496,6 +1532,121 @@ def sphere_free_path(cfg: RenderConfig, n_tris: int = 262_144) -> dict:
                 launches=launches, queues=queues)
 
 
+# the lights path's two configurations: LIGHT triangles taken with a stride
+# through the terrain's triangle list, the envmap's (height, width), and
+# the render settings (ROADMAP Queue 1 item 5; PERF.md section 4)
+LIGHT_CASES = {
+    "many": dict(n_tri=4096, envmap=(1024, 2048),
+                 render={"mis": True, "light_sampling": "power"}),
+    "few": dict(n_tri=32, envmap=None,
+                render={"mis": False, "light_sampling": "power"}),
+}
+
+
+def light_scene(scene_host, case: str, folder: Path, spec: dict):
+    """The lights path's scene ``case`` on ``scene_host``'s mesh (its BVH
+    reused): a JSON description and, with ``spec["envmap"]``, a procedural
+    HDR sky as a PFM, written by ``scene.files`` into ``folder`` and
+    loaded with ``load_description`` (the seven spheres with three of them
+    emissive, a point, a spot and a directional light, the sky, the render
+    settings); then ``spec["n_tri"]`` of the mesh's triangles made LIGHT
+    (``scene.files.lamp_triangles``).  ``spec`` is a LIGHT_CASES entry or
+    one cut to a smaller size.  Returns (Scene, config overrides, seconds
+    to write and load the files)."""
+    envmap = spec["envmap"]
+    folder.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    env = None
+    if envmap:
+        env = scene_files.write_envmap_pfm(folder / f"sky_{case}.pfm",
+                                           *envmap)
+    desc = scene_files.write_lights_description(
+        folder / f"lights_{case}.json", envmap=env, render=spec["render"])
+    bundle = load_description(desc)
+    refl, color = scene_files.lamp_triangles(scene_host.tri_vert.shape[0],
+                                             spec["n_tri"])
+    sc = dataclasses.replace(
+        scene_host, spheres=bundle.scene.spheres,
+        envmap=bundle.scene.envmap, delta_lights=bundle.scene.delta_lights,
+        tri_refl=refl, tri_color=color)
+    return sc, bundle.config, time.perf_counter() - t0
+
+
+def lights_path(scene_host, cfg: RenderConfig,
+                cases: dict = LIGHT_CASES) -> dict:
+    """The lights path (``cases``, :data:`LIGHT_CASES` on the main scene)
+    at ``cfg``'s size: for each configuration the Renderer's memory, phase
+    3 eager
+    (mono, 3 poses, the stage split) and captured (the captured state bit
+    for bit the eager one after 6 steps with a pose and a sun change
+    between, then 3 poses replayed), phase 3 with the wave kernel at pose
+    0, both traversal kernels against the plain walk on its extend,
+    shadow and AOV queues (the shadow queue's finite, shrunk ranges
+    toward BVH emitters are the new traffic) and the accumulation on a
+    step's queue, and a 64x64 render on the card against the CPU."""
+    out = {}
+    for case, spec in cases.items():
+        sc, over, files_s = light_scene(scene_host, case, SCENE_DIR, spec)
+        cfg_c = dataclasses.replace(cfg, fuse_step_chains="off", **over)
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        before_mb = torch.cuda.memory_allocated() / 1e6
+        ren = tr.Renderer(sc, cfg_c)
+        torch.cuda.synchronize()
+        upload_s = time.perf_counter() - t0
+        peak_mb = torch.cuda.max_memory_allocated() / 1e6
+        sd = ren.scene
+        multi, total = tr._n_lights(sd)
+        counts = dict(sphere_lights=len(sd.light_indices),
+                      tri_lights=sd.n_tri_lights,
+                      delta_lights=sd.n_delta_lights, total=total,
+                      envmap=[int(v) for v in sd.env_meta],
+                      pick=("alias" if total > 64 else "cdf")
+                      if tr._light_power_mode(cfg_c, sd, total)
+                      else "uniform", mis=cfg_c.mis)
+        log(f"lights {case}: {counts}; files written and loaded in "
+            f"{files_s:.2f} s, scene packed and uploaded in {upload_s:.2f} "
+            f"s; light tables {light_table_mb(sd):.1f} MB; device memory "
+            f"after building the Renderer: peak {peak_mb:.1f} MB "
+            f"({before_mb:.1f} MB before)")
+        if not multi or sd.n_tri_lights != spec["n_tri"] \
+                or len(sd.light_indices) != 3 or sd.n_delta_lights != 3 \
+                or sd.has_envmap != bool(spec["envmap"]):
+            raise AssertionError(f"the lights scene {case} lacks a light: "
+                                 f"{counts}")
+        poses, launches = phase3(ren, (0, 1, 2), f"lights-{case}-")
+        cap = captured_step(sd, ren.tables, dataclasses.replace(
+            cfg_c, fuse_step_chains="auto"), chain=False,
+            label=f"lights-{case}-")
+        compare_captured(poses, cap["poses"])
+        ren_w = tr.Renderer(sd, dataclasses.replace(
+            cfg_c, packet_kernel_mode="wave"), tables=ren.tables)
+        poses_w, launches_w = phase3(ren_w, (0,), f"lights-{case}-")
+        del ren_w
+        queues = kernels_at_slice(ren, stream=False, label=f"lights-{case}")
+        mad = phase4(light_case=(case, spec))
+        runs = dict(eager=launches, captured=cap["launches"], wave=launches_w)
+        if not (launches["traverse"] > 0 and launches["accumulate"] > 0
+                and cap["launches"]["traverse"] > 0
+                and launches_w["traverse_wave"] > 0):
+            raise AssertionError(f"the lights path {case} did not run "
+                                 f"through the kernels: {runs}")
+        out[case] = dict(counts=counts, files_s=files_s, upload_s=upload_s,
+                         renderer_peak_mb=peak_mb, memory_before_mb=before_mb,
+                         poses=poses, poses_captured=cap["poses"],
+                         poses_wave=poses_w, launches=runs, queues=queues,
+                         card_vs_cpu=mad)
+        del ren, cap, sd
+        torch.cuda.empty_cache()
+    return out
+
+
+def light_table_mb(sd) -> float:
+    """Device MB of the light tables."""
+    return sum(getattr(sd, k).numel() * 4 for k in (
+        "tri_lights", "delta_lights", "light_powers", "light_alias",
+        "env_data", "env_alias")) / 1e6
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1526,20 +1677,34 @@ def main() -> int:
         f"{tb.rows.device}; device memory after building the Renderer: "
         f"peak {peak_mb:.1f} MB")
 
+    # seconds a path takes, for the script's time budget
+    secs, last = {}, [time.perf_counter()]
+
+    def mark(name):
+        now = time.perf_counter()
+        secs[name] = round(now - last[0], 2)
+        last[0] = now
+
     p1 = phase1(ren.scene, ren.tables)
     eq = gate(ren.scene)
     acc = phase2(cfg.num_pixels, cfg.num_rays)
+    mark("phases 1, gate, 2")
     poses, launches = phase3(ren)
+    # the wave generation at one pose: its kernel's checks come below
     ren_w = tr.Renderer(ren.scene, dataclasses.replace(
         cfg_eager, packet_kernel_mode="wave"), tables=ren.tables)
-    poses_w, launches_w = phase3(ren_w)
+    poses_w, launches_w = phase3(ren_w, (0,))
     compare_in_step(poses, poses_w)
     del ren_w
+    mark("phase 3")
     cap = captured_step(ren.scene, ren.tables, cfg)
     compare_captured(poses, cap["poses"])
+    mark("captured")
     sl = kernels_at_slice(ren)
+    mark("kernels at the slice")
     disp = display_path(ren.scene, ren.tables, dataclasses.replace(
         cfg, denoise="on", bloom_strength=0.1, packet_kernel_mode="wave"))
+    mark("display")
     # the interactive preset on the main scene
     preset = interactive_config()
     if not ren.scene.tri_default_mat:
@@ -1549,13 +1714,21 @@ def main() -> int:
         ren.scene, dataclasses.replace(preset, fuse_step_chains="off"),
         tables=ren.tables))
     fly = flythrough(ren.scene, ren.tables, preset)
+    mark("preset and fly-through")
     mad = phase4()
     mad_dn = phase4(denoise_wave=True)
+    mark("phase 4")
     bench = bench_path(ren.scene, cfg)
+    mark("pose harness")
     del ren
     torch.cuda.empty_cache()
     ld = loaded_path(cfg_eager)
+    mark("loaded")
     sf = sphere_free_path(cfg_eager)
+    mark("sphere-free")
+    lt = lights_path(scene_host, cfg)
+    mark("lights")
+    log(f"seconds by path (build {build_s:.1f} s before): {secs}")
 
     queues = ("extend", "connect", "aov")
 
@@ -1578,7 +1751,9 @@ def main() -> int:
                     loaded={q: queue_entry(ld["queues"][q], gen)
                             for q in queues},
                     sphere_free={q: queue_entry(sf["queues"][q], gen)
-                                 for q in queues})
+                                 for q in queues},
+                    lights={case: {q: queue_entry(lt[case]["queues"][q], gen)
+                                   for q in queues} for case in lt})
 
     def queue_entry(q, gen):
         return dict(ms=q[gen]["ms"], plain_ms=q["plain_ms"],
@@ -1621,6 +1796,11 @@ def main() -> int:
                              "bound_ms": nrm["bound_ms"],
                              "bound_by": nrm["bound_by"]})
 
+    def lights_launches(key, *runs):
+        """A kernel's launches on the lights path, both configurations,
+        over the named runs (eager and captured phase 3, the wave run)."""
+        return sum(lt[c]["launches"][r][key] for c in lt for r in runs)
+
     regs = build.registers()
     result = {"kernels": [
         {"name": "traverse", "route": "cuda",
@@ -1633,6 +1813,7 @@ def main() -> int:
          "sphere_free_launches": sf["launches"]["traverse"],
          "flythrough_launches": fly["normals-on-auto"]["launches"][
              "traverse"],
+         "lights_launches": lights_launches("traverse", "eager", "captured"),
          "registers": {k: v for k, v in regs.items()
                        if k.startswith("traverse_kernel<")},
          **entry("mono"), **normals_entry("mono", "normals-on-auto")},
@@ -1644,6 +1825,7 @@ def main() -> int:
          "display_captured_launches": disp["captured"]["launches"][
              "traverse_wave"],
          "loaded_launches": ld["launches"]["wave"]["traverse_wave"],
+         "lights_launches": lights_launches("traverse_wave", "wave"),
          "registers": {k: v for k, v in regs.items()
                        if k.startswith("traverse_wave_kernel<")},
          **entry("wave"), **normals_entry("wave", "normals-on-wave-auto")},
@@ -1657,9 +1839,13 @@ def main() -> int:
          "loaded_launches": ld["launches"]["mono"]["accumulate"]
          + ld["launches"]["wave"]["accumulate"],
          "sphere_free_launches": sf["launches"]["accumulate"],
+         "lights_launches": lights_launches("accumulate", "eager",
+                                            "captured", "wave"),
          "max_abs_err": max(acc["max_abs_err"], at_step["max_abs_err"],
                             ld["queues"]["accumulate"]["max_abs_err"],
-                            sf["queues"]["accumulate"]["max_abs_err"]),
+                            sf["queues"]["accumulate"]["max_abs_err"],
+                            *(lt[c]["queues"]["accumulate"]["max_abs_err"]
+                              for c in lt)),
          "ms": acc["ms"], "kernel_ms": acc["kernel_ms"],
          "plain_ms": acc["plain_ms"], "bound_ms": acc["bound_ms"],
          "bound_by": acc["bound_by"], "library_ms": acc["library_ms"],
@@ -1674,7 +1860,9 @@ def main() -> int:
                         "live": at_step["live"],
                         "distinct": at_step["distinct"]},
          "loaded_step_queue": step_entry(ld["queues"]["accumulate"]),
-         "sphere_free_step_queue": step_entry(sf["queues"]["accumulate"])},
+         "sphere_free_step_queue": step_entry(sf["queues"]["accumulate"]),
+         "lights_step_queue": {c: step_entry(lt[c]["queues"]["accumulate"])
+                               for c in lt}},
         {"name": "stream", "route": "cuda",
          "source": "tyrant_tpu_torch/csrc/stream.cu",
          "replaces": "tyrant_tpu/ops/pallas/stream_kernel.py:105",
@@ -1686,7 +1874,7 @@ def main() -> int:
                     "display": disp, "card_vs_cpu": mad,
                     "card_vs_cpu_denoised_wave": mad_dn, "build_s": build_s,
                     "renderer_peak_mb": peak_mb, "loaded": ld,
-                    "sphere_free": sf, "captured": cap,
+                    "sphere_free": sf, "lights": lt, "captured": cap,
                     "preset_normals": nrm, "flythrough": fly,
                     "registers": regs}))
     log(gpu)

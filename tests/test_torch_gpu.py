@@ -4,8 +4,8 @@ These run chip_smoke.py's checks (phases 1, 2 and 4, the kernels at the
 main path's queues, the denoised display path eager and captured, the
 stream kernel's overflow, the equivalence gate, the pose harness, the
 loaded scene, the sphere-free scene, the captured step against the eager
-one, the normals output of both traversal kernels and the interactive
-fly-through) at small sizes, so the
+one, the normals output of both traversal kernels, the interactive
+fly-through and the lights path) at small sizes, so the
 card's checks live in one place.  The kernels have no CPU mode, so
 these tests skip without a CUDA device.  This file imports no JAX, so it
 also runs where JAX is not installed:
@@ -446,3 +446,55 @@ def test_failed_capture_raises(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="capturing the render step"):
         ren.step(chip_smoke.camera_for_pose(0), 2)
     assert ("step", 1) not in ren._graphs and ren.replayed_steps == 0
+
+
+SMALL_LIGHTS = {"many": dict(chip_smoke.LIGHT_CASES["many"], n_tri=96,
+                             envmap=(64, 128)),
+                "few": dict(chip_smoke.LIGHT_CASES["few"], n_tri=8)}
+
+
+def test_lights_path_at_small_size(cuda):
+    """chip_smoke's lights path at a small size, both configurations:
+    both traversal kernels against the plain walk on its extend, shadow
+    (finite, shrunk ranges toward emissive triangles in the BVH) and AOV
+    queues, the accumulation on its step's queue, launches counted eager,
+    captured and with the wave kernel, the card against the CPU."""
+    cfg = small_config(width=96, height=64, num_rays=8192)
+    host = Scene.from_triangles(*terrain(n_quads=32, towers=3))
+    lt = chip_smoke.lights_path(host, cfg, SMALL_LIGHTS)
+    for case in ("many", "few"):
+        out = lt[case]
+        for q in ("extend", "connect", "aov"):
+            for gen in ("mono", "wave"):
+                assert out["queues"][q][gen]["mismatches"] == 0
+        assert out["queues"]["accumulate"]["max_abs_err"] == 0.0
+        assert out["launches"]["eager"]["traverse"] == 2 * 42
+        assert out["launches"]["captured"]["traverse"] == 2 * 42
+        assert out["launches"]["wave"]["traverse_wave"] == 2 * 14
+        assert out["queues"]["connect"]["targets"]["finite"] > 0
+        assert out["card_vs_cpu"] < 0.03
+    assert lt["many"]["counts"]["pick"] == "alias"
+    assert lt["few"]["counts"]["pick"] == "cdf"
+
+
+@pytest.mark.parametrize("case", ["many", "few"])
+def test_captured_lights_step_is_bit_equal_to_eager(cuda, case, tmp_path):
+    """The lights scenes' step captured (with MIS, the carried pdfs in the
+    graph's static buffers) bit for bit the eager step after 6 steps with
+    a pose and a sun change between; the static pdf buffer is [N] with
+    MIS and [1] without."""
+    import dataclasses
+    host = Scene.from_triangles(*terrain(n_quads=32, towers=3))
+    sc, over, _ = chip_smoke.light_scene(host, case, tmp_path,
+                                         SMALL_LIGHTS[case])
+    cfg = small_config(96, 64, num_rays=8192, **over)
+    sd = sc.to_device(cuda)
+    cap = chip_smoke.captured_step(sd, ktrav.PacketTables(sd.bvh),
+                                   dataclasses.replace(
+                                       cfg, fuse_step_chains="auto"),
+                                   poses_run=(0,), chain=False)
+    assert cap["equal_after_6"]
+    assert cap["launches"]["traverse"] == 2 * 14
+    ren = tr.Renderer(sd, cfg)
+    ren.step(chip_smoke.camera_for_pose(0), 2)
+    assert ren.state.bsdf_pdf.shape == ((8192,) if case == "many" else (1,))

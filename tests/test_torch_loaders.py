@@ -5,8 +5,10 @@ on the files ``scene/files.py`` writes: every array each loader returns
 bit for bit, the same exception types on malformed input, the same host
 ``Scene``, and ``Scene.to_device``'s tables (tri_shade, tri_attr,
 sphere_table, the BVH tables and the fat rows) bit for bit with the JAX
-``SceneData``'s.  Features the port does not shade are refused by name
-when the scene is uploaded."""
+``SceneData``'s, the light tables and counts with them (emissive
+triangles, delta lights, an environment map, several emissive spheres,
+the power table and its alias rows).  Features the port does not shade
+(textures and maps) are refused by name when the scene is uploaded."""
 
 import dataclasses
 import json
@@ -502,11 +504,15 @@ SCENES = ["obj_tri", "obj_ggx", "obj_vn", "asset_obj", "ply_binary",
           "ply_colors_ascii", "ply_normals", "ply_terrain", "stl_binary",
           "glb_ggx", "glb_rough_glass", "glb_ior", "glb_bare", "glb_noscene",
           "json_spheres", "json_default_plus", "json_instanced",
-          "json_identity", "json_override", "json_asset"]
+          "json_identity", "json_override", "json_asset", "obj_ke",
+          "json_lights"]
 _BVH = ("node_packed", "miss_flat", "tri_packed", "leaf_packed")
 _TABLES = ("tri_shade", "tri_attr", "sphere_table", "sphere_center",
-           "sphere_radius", "sphere_emission")
-_FLAGS = ("smooth_normals", "has_ggx", "has_rrefr", "has_var_ior")
+           "sphere_radius", "sphere_emission", "tri_lights", "delta_lights",
+           "light_powers", "light_alias", "env_data", "env_alias")
+_FLAGS = ("smooth_normals", "has_ggx", "has_rrefr", "has_var_ior",
+          "light_indices", "n_tri_lights", "n_delta_lights", "env_meta",
+          "has_envmap")
 
 
 def _bits(a):
@@ -525,6 +531,10 @@ def check_tables(jd, td):
                                       _bits(np.asarray(getattr(jd, k))), k)
     for k in _FLAGS:
         assert getattr(td, k) == getattr(jd, k), k
+    # the power pick's total (the MIS emitter-hit pdf's denominator)
+    np.testing.assert_allclose(td.light_total_power.numpy(),
+                               np.asarray(jd.light_powers).sum(),
+                               rtol=2.4e-7)
     assert td.light_index == int(jd.light_index)
     jt, tt = JPacketTables(jd.bvh), PacketTables(td.bvh)
     np.testing.assert_array_equal(_bits(tt.rows.numpy()),
@@ -555,10 +565,8 @@ def test_missing_file_gives_a_scene_without_primitives(tmp_path, capsys):
     ("obj_map_kn", ["normal maps"]),
     ("obj_map_pr", ["roughness maps"]),
     ("obj_map_pm", ["roughness maps", "metal maps"]),
-    ("obj_ke", ["emissive triangles"]),
-    ("json_lights", ["delta lights"]),
-    ("glb_full", ["textures", "emissive triangles", "delta lights"]),
-    ("glb_emissive_texture", ["textures", "emissive triangles"])])
+    ("glb_full", ["textures"]),
+    ("glb_emissive_texture", ["textures"])])
 def test_unported_features_refused_by_name(case, features, tmp_path):
     """The scene loads (equal to the JAX package's), and its upload raises
     naming exactly the features the JAX package would shade and the port
@@ -574,19 +582,30 @@ def test_unported_features_refused_by_name(case, features, tmp_path):
 
 
 def test_envmap_and_several_lights_refused(tmp_path):
-    lights = json.loads(json.dumps({"spheres": [
+    """Once refused on upload, now shaded: a JSON description with two
+    emissive spheres and one with an envmap from a file upload with
+    tables bit for bit the JAX package's (the name is kept from when the
+    port refused them)."""
+    lights = {"spheres": [
         {"center": [0, 0, 40], "radius": 4, "material": "light",
          "emission": [5, 5, 5]},
         {"center": [9, 0, 40], "radius": 4, "material": "light"}],
-        "default_spheres": False}))
-    sc = Scene.load(_write(tmp_path, "l.json", lights))
-    with pytest.raises(ValueError, match="several emissive spheres"):
-        sc.to_device("cpu")
+        "default_spheres": False}
+    path = _write(tmp_path, "l.json", lights)
+    sc = Scene.load(path)
+    assert sc.unported() == []
+    td = sc.to_device("cpu")
+    assert td.light_indices == (0, 1) and td.n_tri_lights == 0
+    check_tables(jdesc.load_description(path, builder="numpy")
+                 .scene.to_device(), td)
     np.save(tmp_path / "env.npy", np.ones((4, 8, 3), np.float32))
     sc = Scene.load(None, envmap=str(tmp_path / "env.npy"))
+    js = JScene.load(None, envmap=str(tmp_path / "env.npy"))
     assert sc.envmap.shape == (4, 8, 3)
-    with pytest.raises(ValueError, match="environment maps"):
-        sc.to_device("cpu")
+    td = sc.to_device("cpu")
+    assert td.has_envmap and td.env_meta == (4.0, 8.0)
+    assert td.env_data.shape == (33, 4) and td.env_alias.shape == (32, 12)
+    check_tables(js.to_device(), td)
 
 
 # --------------------------------------------------------------------------
@@ -654,7 +673,8 @@ def test_interop_carries_a_loaded_scene(tmp_path):
                    for k in interop.SCENE_LEAVES[4:]})
     td, tables = interop.scene_from_numpy(
         leaves, np.asarray(JPacketTables(jd.bvh).rows), "cpu",
-        flags={k: getattr(jd, k) for k in interop.SCENE_FLAGS})
+        flags={k: getattr(jd, k) for k in interop.SCENE_FLAGS},
+        aux={k: getattr(jd, k) for k in interop.SCENE_AUX})
     check_tables(jd, td)
     assert td.has_ggx and td.has_rrefr and td.has_var_ior \
         and td.smooth_normals

@@ -120,12 +120,12 @@ def test_terrain_matches_jax_renderer():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("mis", "on"), ("fog", "on"), ("sampler", "sobol"),
+    ("fog_falloff", 0.02), ("fog", "on"), ("sampler", "sobol"),
     ("adaptive_sampling", "on"), ("track_variance", "on"),
-    ("light_sampling", "power"), ("projection", "fisheye"),
+    ("bokeh_rotation", 0.3), ("projection", "fisheye"),
     ("motion_blur", 0.5), ("crop", (0, 0, 8, 8)), ("bokeh_blades", 6),
     ("ortho_height", 20.0), ("radiance_clamp", 4.0), ("seed", 3),
-    ("texture_filter", "nearest"), ("fisheye_fov_degrees", 120.0)])
+    ("adaptive_interval", 8), ("fisheye_fov_degrees", 120.0)])
 def test_unported_config_fields_raise(field, value):
     cfg = dataclasses.replace(small_config(16, 16, 1024), **{field: value})
     with pytest.raises(ValueError, match=field):

@@ -157,16 +157,22 @@ def test_interop_round_trip():
     assert tables.max_depth == jt.max_depth and tables.supported
 
 
+_TEX = dict(textures=[np.ones((2, 2, 3), np.float32)],
+            tri_uv=np.zeros((1, 3, 2)))
+
+
 @pytest.mark.parametrize("kw", [
-    dict(textures=[np.ones((2, 2, 3), np.float32)],
-         tri_uv=np.zeros((1, 3, 2)), tri_tex=np.zeros(1, np.int32)),
-    dict(envmap=np.ones((4, 8, 3))),
-    dict(tri_refl=np.array([4])),
-    dict(delta_lights=DeltaLights.from_specs(
-        [{"type": "point", "position": [0, 0, 9]}]))])
+    dict(_TEX, tri_tex=np.zeros(1, np.int32)),
+    dict(_TEX, tri_ntex=np.zeros(1, np.int32)),
+    dict(_TEX, tri_rtex=np.zeros(1, np.int32)),
+    dict(textures=[np.full((2, 2, 4), 0.5, np.float32)],
+         tri_uv=np.zeros((1, 3, 2)), tri_tex=np.zeros(1, np.int32),
+         tri_refl=np.array([4]), delta_lights=DeltaLights.from_specs(
+             [{"type": "point", "position": [0, 0, 9]}]))])
 def test_unported_scene_features_raise(kw):
     """A scene builds with every host record; the features the port does
-    not shade are refused by name when it is uploaded."""
+    not shade (textures and maps; the lights are shaded) are refused by
+    name when it is uploaded."""
     v = np.zeros((1, 3), np.float32)
     sc = Scene.from_triangles(v, v + [1, 0, 0], v + [0, 1, 0],
                               builder="numpy", **kw)
@@ -175,10 +181,20 @@ def test_unported_scene_features_raise(kw):
 
 
 def test_unported_sphere_sets_raise():
-    s = Spheres.default_seven()
-    s.refl = s.refl.copy()
+    """Several emissive spheres and an envmap, once refused, upload with
+    their light tables bit for bit the JAX package's (the name is kept
+    from when the port refused them)."""
+    from tyrant_tpu.scene.scene import Spheres as JSpheres
+    s, js = Spheres.default_seven(), JSpheres.default_seven()
+    s.refl = js.refl = s.refl.copy()
     s.refl[0] = 4  # a second emissive sphere
-    with pytest.raises(ValueError, match="several emissive"):
-        Scene.load(None, spheres=s).to_device("cpu")
-    with pytest.raises(ValueError, match="environment maps"):
-        Scene.load(None, envmap=np.ones((4, 8, 3))).to_device("cpu")
+    s.emission = js.emission = s.emission.copy()
+    s.emission[0] = (1.0, 2.0, 0.5)
+    env = np.random.default_rng(2).uniform(0, 4, (4, 8, 3))
+    td = Scene.load(None, spheres=s, envmap=env).to_device("cpu")
+    jd = JScene.load(None, spheres=js, envmap=env).to_device()
+    assert td.light_indices == jd.light_indices == (0, 6)
+    assert td.env_meta == jd.env_meta == (4.0, 8.0)
+    for k in ("light_powers", "env_data", "env_alias", "sphere_table"):
+        np.testing.assert_array_equal(_bits(getattr(td, k).numpy()),
+                                      _bits(np.asarray(getattr(jd, k))), k)

@@ -18,23 +18,29 @@ from .render import RenderState
 from .scene.scene import SceneData, scene_data
 
 SCENE_LEAVES = ("node_packed", "miss_flat", "tri_packed", "leaf_packed",
-                "tri_shade", "sphere_table", "tri_attr", "sphere_center")
+                "tri_shade", "sphere_table", "tri_attr", "sphere_center",
+                "tri_lights", "delta_lights", "light_powers", "light_alias",
+                "env_data", "env_alias")
 # the SceneData flags the render step gates its terms on
 SCENE_FLAGS = ("smooth_normals", "has_ggx", "has_rrefr", "has_var_ior",
                "tri_default_mat")
+# the SceneData counts and sizes the render step reads on the host
+SCENE_AUX = ("n_tri_lights", "n_delta_lights", "env_meta")
 STATE_FIELDS = ("accum", "origin", "direction", "direct", "pending", "pixel",
                 "bounces", "last_specular", "n_carried", "start_position",
-                "frame", "shadow_rays")
+                "frame", "shadow_rays", "bsdf_pdf")
 
 
 def scene_from_numpy(leaves: Mapping[str, np.ndarray], rows: np.ndarray,
-                     device, flags: Mapping[str, bool] | None = None
+                     device, flags: Mapping[str, bool] | None = None,
+                     aux: Mapping | None = None
                      ) -> tuple[SceneData, PacketTables]:
     """``leaves``: the SceneData arrays named in SCENE_LEAVES (the BVH's
     four under their BVHDevice names; ``sphere_center`` [S, 3] gives the
     sphere count, 0 for a scene without spheres); ``rows``:
     PacketTables.rows; ``flags``: the SceneData flags named in
-    SCENE_FLAGS (absent ones are off)."""
+    SCENE_FLAGS (absent ones are off); ``aux``: the counts named in
+    SCENE_AUX (absent ones are 0, or () for env_meta)."""
     missing = [k for k in SCENE_LEAVES if k not in leaves]
     if missing:
         raise ValueError(f"scene leaves missing: {missing}")
@@ -42,12 +48,20 @@ def scene_from_numpy(leaves: Mapping[str, np.ndarray], rows: np.ndarray,
     unknown = set(flags) - set(SCENE_FLAGS)
     if unknown:
         raise ValueError(f"unknown scene flags: {sorted(unknown)}")
+    aux = dict(aux or {})
+    unknown = set(aux) - set(SCENE_AUX)
+    if unknown:
+        raise ValueError(f"unknown scene aux fields: {sorted(unknown)}")
     bvh = BVHDevice.from_numpy(leaves["node_packed"], leaves["miss_flat"],
                                leaves["tri_packed"], leaves["leaf_packed"],
                                device)
     sd = scene_data(bvh, leaves["tri_shade"], leaves["sphere_table"], device,
                     n_spheres=int(np.shape(leaves["sphere_center"])[0]),
                     tri_attr=leaves["tri_attr"],
+                    **{k: leaves[k] for k in SCENE_LEAVES[8:]},
+                    n_tri_lights=int(aux.get("n_tri_lights", 0)),
+                    n_delta_lights=int(aux.get("n_delta_lights", 0)),
+                    env_meta=tuple(aux.get("env_meta", ())),
                     **{k: bool(v) for k, v in flags.items()})
     return sd, PacketTables(bvh, rows=np.asarray(rows))
 

@@ -86,12 +86,27 @@ def sphere_surface_sample(center, radius, seed):
     cos(phi), x/z the sine terms).  Returns (new_seed, point)."""
     seed, u = rng.random_float(seed)
     seed, v = rng.random_float(seed)
+    return seed, sphere_surface_from_uniforms(center, radius, u, v)
+
+
+def sphere_surface_from_uniforms(center, radius, u, v):
+    """The mapping of :func:`sphere_surface_sample` from two uniforms
+    (the multi-light pick feeds one pair to whichever shape it picked)."""
     cos_phi = 2.0 * u - 1.0
     sin_phi = torch.sqrt(torch.clamp(1.0 - cos_phi * cos_phi, min=0.0))
     theta = 2.0 * PI * v
     offset = torch.stack([sin_phi * torch.sin(theta), cos_phi,
                           sin_phi * torch.cos(theta)], dim=-1)
-    return seed, center + radius * offset
+    return center + radius * offset
+
+
+def triangle_sample_from_uniforms(v0, e1, e2, u, v):
+    """Uniform point on a triangle (square-root warp): v0 + b1 e1 + b2 e2
+    with b1 = 1 - sqrt(u), b2 = v sqrt(u)."""
+    su = torch.sqrt(torch.clamp(u, min=0.0))
+    b1 = 1.0 - su
+    b2 = v * su
+    return v0 + b1[..., None] * e1 + b2[..., None] * e2
 
 
 def cosine_hemisphere_sample(normal, seed):

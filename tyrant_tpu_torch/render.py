@@ -1,8 +1,12 @@
 """The wavefront render step, the port of ``tyrant_tpu/render.py`` for the
-main path (the reference estimator at the default static gates) and the
-loaded-scene materials: GGX conductors, rough glass, a per-triangle glass
+main path (the reference estimator at the default static gates), the
+loaded-scene materials (GGX conductors, rough glass, a per-triangle glass
 IOR, spectral dispersion and smooth vertex normals, in scenes with or
-without spheres.
+without spheres) and the lights: several emissive spheres, emissive
+triangles, point/spot/directional delta lights, uniform or power light
+picking (``light_sampling``), an equirectangular environment map
+(``texture_filter`` nearest or bilinear) and multiple importance sampling
+(``mis``) with environment next-event estimation.
 
 One :func:`render_step` tops up the fixed-size ray queue with camera rays
 (raygen), finds every ray's closest hit (extend), shades it with a BSDF
@@ -16,12 +20,22 @@ the accumulation kernel (``ops/kernels``); the rest is plain PyTorch.
 with the guides of one AOV pass per pose (:func:`render_aovs`) and
 bloomed.
 
-Every material and scene term is gated in Python on the scene's flags
-(``SceneData.has_ggx``, ``has_rrefr``, ``has_var_ior``,
-``smooth_normals``, no spheres) and on ``cfg.dispersion``, as the JAX
-package gates them at trace time, so a scene without them issues the
-same device operations as the main path.  Every uniform is drawn in the
-JAX package's order, from the same streams.
+The light tables shade reads (``SceneData``): ``tri_lights`` rows
+[K, 13] v0, e1, e2, emission, area; ``delta_lights`` rows [L, 12] kind,
+position, unit axis, intensity, cos_inner, cos_outer; the power pick's
+``light_cdf`` and ``light_inv_pdf`` (up to 64 lights) or ``light_alias``
+rows [keep, alias, 1/pdf(self), 1/pdf(alias)] (beyond); ``env_data``
+[H*W+1, 4] radiance and, in lane 3, the texel's solid-angle pdf, and
+``env_alias`` [H*W, 12] for the environment draws; ``tri_shade`` lane 7
+holds a LIGHT triangle's area, which the MIS emitter-hit pdf reads.
+
+Every material, light and scene term is gated in Python on the scene's
+flags and counts (``SceneData.has_ggx``, ``has_rrefr``, ``has_var_ior``,
+``smooth_normals``, no spheres, ``light_indices``, ``n_tri_lights``,
+``n_delta_lights``, ``has_envmap``) and on ``cfg.dispersion`` and
+``cfg.mis``, as the JAX package gates them at trace time, so a scene
+without them issues the same device operations as the main path.  Every
+uniform is drawn in the JAX package's order, from the same streams.
 
 State lives in tensors on one device.  Unlike the JAX package, the step
 updates ``state.accum`` in place (the JAX Renderer donates its state).
@@ -45,26 +59,32 @@ from .ops.intersect import intersect_spheres, ray_sphere
 from .ops.kernels.accum import accumulate_terminated, sentinel
 from .ops.kernels.traverse import (PacketTables, any_hit_packets,
                                    closest_hit_packets)
-from .ops.sampling import (concentric_sample_disk, cone_sample,
+from .ops.sampling import (concentric_sample_disk, cone_sample, cross,
                            cosine_hemisphere_sample, dot, ggx_d_vec, ggx_g1,
                            ggx_vndf_sample_from_uniforms, normalize,
-                           phong_lobe_sample, reflect, sphere_surface_sample)
+                           phong_lobe_sample, reflect,
+                           sphere_surface_from_uniforms,
+                           sphere_surface_sample,
+                           triangle_sample_from_uniforms)
 from .ops.tonemap import bloom, to_uint8, tonemap_image
+from .scene.envlight import LUM_RGB
 from .scene.scene import (DIFF, GGX, LIGHT, PHONG, REFR, RREFR, SPEC, Scene,
                           SceneData)
 
 PHONG_EXPONENT = 40.0
 _KEY_GRID = 8  # survivor-ordering spatial grid resolution
 
-# RenderConfig fields the port implements; the TPU-only selectors in the
-# second group are accepted and have no effect (CUDA tensors always take
-# the kernels, CPU tensors the plain versions)
+# RenderConfig fields the port implements (``texture_filter`` reaches only
+# the environment map while textures are refused on upload); the TPU-only
+# selectors in the second group are accepted and have no effect (CUDA
+# tensors always take the kernels, CPU tensors the plain versions)
 _PORTED_FIELDS = {"width", "height", "num_rays", "max_bounces", "epsilon",
                   "sky", "bvh", "focal_distance_scale", "raygen_order",
                   "tonemap", "exposure", "packet_kernel_mode", "denoise",
                   "denoise_iterations", "bloom_strength", "bloom_threshold",
                   "bloom_radius", "dispersion", "use_kernel_normals",
-                  "fuse_step_chains"}
+                  "fuse_step_chains", "mis", "light_sampling",
+                  "texture_filter"}
 _IGNORED_SELECTORS = {"use_packet_kernel", "use_accum_kernel",
                       "adaptive_connect", "adaptive_connect_frac"}
 
@@ -100,6 +120,10 @@ class RenderState:
     start_position: torch.Tensor  # raygen round-robin counter
     frame: torch.Tensor          # RNG frame counter (uint32 value)
     shadow_rays: torch.Tensor    # valid NEE shadow rays traced so far
+    # [N] solid-angle pdf of the BSDF sample that made each carried ray
+    # (the MIS balance weight at its emitter or sky hit); [1] ones when
+    # cfg.mis is "off"
+    bsdf_pdf: torch.Tensor
 
 
 def init_state(cfg: RenderConfig, device) -> RenderState:
@@ -118,7 +142,9 @@ def init_state(cfg: RenderConfig, device) -> RenderState:
         last_specular=torch.zeros((n,), dtype=torch.bool, device=device),
         n_carried=scalar(0), start_position=scalar(0),
         frame=scalar(1),  # never 0: it keys the RNG
-        shadow_rays=scalar(0))
+        shadow_rays=scalar(0),
+        bsdf_pdf=torch.ones((n if cfg.mis == "on" else 1,),
+                            dtype=torch.float32, device=device))
 
 
 def reset_accumulation(state: RenderState) -> RenderState:
@@ -232,11 +258,88 @@ def _intersect_scene(origin, direction, scene: SceneData,
 
 
 # --------------------------------------------------------------------------
+# environment map
+# --------------------------------------------------------------------------
+
+def _env_uv(d):
+    """Equirectangular (u, v) of directions ``d`` [N, 3]: z up, u wraps in
+    azimuth, v = 0 at the zenith."""
+    u = torch.atan2(d[:, 1], d[:, 0]) * (0.5 * INV_PI) + 0.5
+    v = torch.acos(torch.clamp(d[:, 2], -1.0, 1.0)) * INV_PI
+    return u, v
+
+
+def _env_nearest_index(scene: SceneData, u, v):
+    """env_data row of the texel nearest to (u, v)."""
+    eh, ew = int(scene.env_meta[0]), int(scene.env_meta[1])
+    x = torch.clamp((u * ew).to(torch.int32), max=ew - 1)
+    y = torch.clamp((v * eh).to(torch.int32), max=eh - 1)
+    return torch.clamp(1 + y * ew + x, 0,
+                       scene.env_data.shape[0] - 1).long()
+
+
+def _sample_envmap(scene: SceneData, d, filter_mode: str):
+    """Environment radiance [N, 3] for directions ``d``: one nearest tap
+    under "nearest", four bilinear taps otherwise (u wraps, v clamps at
+    the poles) into env_data's rows (offset 1; row 0 a fallback)."""
+    eh, ew = int(scene.env_meta[0]), int(scene.env_meta[1])
+    u, v = _env_uv(d)
+    if filter_mode == "nearest":
+        return scene.env_data[_env_nearest_index(scene, u, v)][:, :3]
+    n_rows = scene.env_data.shape[0]
+
+    def tap(xi, yi):
+        yi = torch.clamp(yi, 0, eh - 1)
+        idx = torch.clamp(1 + yi * ew + xi, 0, n_rows - 1).long()
+        return scene.env_data[idx][:, :3]
+
+    fx = u * ew - 0.5
+    fy = v * eh - 0.5
+    x0f = torch.floor(fx)
+    y0f = torch.floor(fy)
+    ax = _col(fx - x0f)
+    ay = _col(fy - y0f)
+    x0 = torch.remainder(x0f.to(torch.int32), ew)
+    y0 = y0f.to(torch.int32)
+    x1 = torch.remainder(x0 + 1, ew)
+    return (tap(x0, y0) * (1 - ax) * (1 - ay) + tap(x1, y0) * ax * (1 - ay)
+            + tap(x0, y0 + 1) * (1 - ax) * ay
+            + tap(x1, y0 + 1) * ax * ay)
+
+
+def _env_pdf_nearest(scene: SceneData, d):
+    """The environment sampler's solid-angle pdf (env_data lane 3) of the
+    texel nearest to ``d``: the pdf the alias draw used, so the MIS
+    weights of both strategies sum to 1."""
+    u, v = _env_uv(d)
+    return scene.env_data[_env_nearest_index(scene, u, v)][:, 3]
+
+
+# --------------------------------------------------------------------------
 # shade
 # --------------------------------------------------------------------------
 
 def _col(x):
     return x[:, None]
+
+
+def _light_power_mode(cfg: RenderConfig, scene: SceneData,
+                      n_total: int) -> bool:
+    """Whether the light pick is power-proportional: the one gate the NEE
+    pick and the MIS emitter-hit pdf share (they must agree, or the MIS
+    weights stop summing to 1).  Static: the config and the light count;
+    a zero total power falls back to uniform at both sites alike."""
+    return (cfg.light_sampling == "power" and n_total > 1
+            and scene.light_powers.shape[0] == n_total)
+
+
+def _n_lights(scene: SceneData) -> tuple[bool, int]:
+    """(several lights, their count): the emissive spheres, triangles and
+    delta lights; one sphere light or none is the single-light path."""
+    total = len(scene.light_indices) + scene.n_tri_lights \
+        + scene.n_delta_lights
+    return (len(scene.light_indices) > 1 or scene.n_tri_lights > 0
+            or scene.n_delta_lights > 0), total
 
 
 def _smooth_normal(scene: SceneData, tid, p, normal_tri):
@@ -302,43 +405,215 @@ def _ggx_eval(normal, view, light_dir, alpha, f0):
     return fres * _col(d_term * g_term / denom)
 
 
-def _shade_emitter_hit(srow, hit, refl, last_spec_in, direct):
-    """Emitter hits: collect emission on specular-born paths and stop the
-    throughput of diffuse-born ones (NEE already counted them)."""
+def _shade_emitter_hit(cfg: RenderConfig, scene: SceneData, rays, d,
+                       normal, t_safe, hit, refl, refl_tri, color_tri,
+                       rough_tri, is_sphere, srow, direct):
+    """Emitter hits: the emission of the hit sphere or LIGHT triangle (two
+    sided).  Without MIS, collected on specular-born paths, and the
+    throughput of diffuse-born ones stopped (NEE counted them); with MIS,
+    every hit weighted by the balance heuristic between the pdf of the
+    BSDF sample that made the ray and the NEE pdf of this emitter point,
+    and the path stopped."""
+    emission = srow[:, 7:10]
+    if scene.n_tri_lights:
+        emission = torch.where(_col(is_sphere), emission, torch.where(
+            _col(refl_tri == LIGHT), color_tri, torch.zeros_like(color_tri)))
     is_light = hit & (refl == LIGHT)
-    color = torch.where(_col(is_light & last_spec_in), direct * srow[:, 7:10],
+    last_spec_in = rays["last_specular"]
+    if cfg.mis != "on":
+        color = torch.where(_col(is_light & last_spec_in), direct * emission,
+                            torch.zeros_like(direct))
+        direct = torch.where(_col(is_light & ~last_spec_in),
+                             torch.zeros_like(direct), direct)
+        return color, direct
+    # delta lights are never hit, but they take pick probability from the
+    # area lights: the hit-side pdf divides by the count the NEE pick used
+    multi, total = _n_lights(scene)
+    total_l = float(total) if multi else 1.0
+    p_strat_light = 0.5  # the sun/light coin (env-NEE takes the sun slot)
+    pdf_in = rays["bsdf_pdf"]
+    # the face-forwarded normal: -dot(normal, d) is the emitter-side
+    # cosine the NEE pdf uses
+    cos_l_hit = torch.clamp(-dot(normal, d), min=1e-6)
+    sph_area = 4.0 * PI * srow[:, 3] * srow[:, 3]
+    area_hit = torch.where(is_sphere, sph_area, rough_tri)  # lane 7: area
+    if _light_power_mode(cfg, scene, int(total_l)):
+        # the pick pdf of the hit light, from the hit row with the power
+        # table's float32 luminance x area
+        em_base = srow[:, 7:10]
+        if scene.n_tri_lights:
+            em_base = torch.where(_col(is_sphere), em_base, color_tri)
+        lum_hit = (float(LUM_RGB[0]) * em_base[:, 0]
+                   + float(LUM_RGB[1]) * em_base[:, 1]
+                   + float(LUM_RGB[2]) * em_base[:, 2])
+        total_power = scene.light_total_power
+        pick_p_hit = torch.where(
+            total_power > 0,
+            0.75 * lum_hit * area_hit / torch.clamp(total_power, min=1e-30)
+            + 0.25 / total_l, torch.full_like(lum_hit, 1.0 / total_l))
+    else:
+        pick_p_hit = 1.0 / total_l
+    p_hit_sa = (p_strat_light * pick_p_hit) * (t_safe * t_safe) \
+        / torch.clamp(cos_l_hit * area_hit, min=1e-12)
+    w_hit = torch.where(last_spec_in | (pdf_in <= 0.0),
+                        torch.ones_like(pdf_in),
+                        pdf_in / torch.clamp(pdf_in + p_hit_sa, min=1e-12))
+    color = torch.where(_col(is_light), direct * emission * _col(w_hit),
                         torch.zeros_like(direct))
-    direct = torch.where(_col(is_light & ~last_spec_in),
-                         torch.zeros_like(direct), direct)
+    direct = torch.where(_col(is_light), torch.zeros_like(direct), direct)
     return color, direct
 
 
-def _shade_nee_samples(scene: SceneData, sky_params: skymod.SkyParams,
-                       sun_dir, rays, o, normal, frame, slot, seed):
-    """The sun-cone sample, the 50/50 strategy coin and the light-sphere
-    sample with its geometry factors."""
+def _pick_light(cfg: RenderConfig, scene: SceneData, lu, total: int):
+    """The light pick from the uniform ``lu``: (pick [N] i32, 1/pick-pdf
+    [N], or the float light count under a uniform pick).  Power picks
+    use the CDF (up to 64 lights: one broadcast compare, the same
+    integers as the JAX package's compare chain) or one alias row (the
+    scaled uniform's fraction is the coin)."""
+    if not _light_power_mode(cfg, scene, total):
+        return torch.clamp((lu * total).to(torch.int32), max=total - 1), \
+            float(total)
+    if total > 64:
+        i0 = torch.clamp((lu * total).to(torch.int32), max=total - 1)
+        frac = lu * total - i0.to(torch.float32)
+        arow = scene.light_alias[i0.long()]
+        take_self = frac < arow[:, 0]
+        pick = torch.where(take_self, i0, arow[:, 1].to(torch.int32))
+        return pick, torch.where(take_self, arow[:, 2], arow[:, 3])
+    pick = (lu[:, None] >= scene.light_cdf[None, :total - 1]).sum(
+        1, dtype=torch.int32)
+    return pick, scene.light_inv_pdf[pick.long()]
+
+
+def _env_nee_sample(scene: SceneData, rays, frame, slot):
+    """One environment draw a ray (the sun slot of NEE under MIS): an
+    alias row turns two uniforms into a texel whose radiance and
+    solid-angle pdf ride the row, two more jitter the direction inside
+    it.  Returns (direction [N, 3], radiance / pdf [N, 3], pdf [N])."""
+    eh, ew = int(scene.env_meta[0]), int(scene.env_meta[1])
+    n_tx = eh * ew
+    es = rng.seed_from(frame, rays["pixel"], slot, 0, 0xE571)
+    es, eu1 = rng.random_float(es)
+    es, eu2 = rng.random_float(es)
+    es, ej1 = rng.random_float(es)
+    _, ej2 = rng.random_float(es)
+    ei = torch.clamp((eu1 * n_tx).to(torch.int32), max=n_tx - 1)
+    erow = scene.env_alias[ei.long()]
+    ekeep = eu2 < erow[:, 0]
+    ek = torch.where(ekeep, ei, erow[:, 1].to(torch.int32))
+    e_rgb = torch.where(_col(ekeep), erow[:, 2:5], erow[:, 6:9])
+    e_pdf = torch.where(ekeep, erow[:, 5], erow[:, 9])
+    er = torch.div(ek, ew, rounding_mode="floor").to(torch.float32)
+    ec = torch.remainder(ek, ew).to(torch.float32)
+    eth = (er + ej1) * (PI / eh)
+    eph = ((ec + ej2) / ew - 0.5) * (2.0 * PI)
+    sin_th = torch.sin(eth)
+    sample = torch.stack([sin_th * torch.cos(eph), sin_th * torch.sin(eph),
+                          torch.cos(eth)], dim=-1)
+    return sample, e_rgb / _col(torch.clamp(e_pdf, min=1e-12)), e_pdf
+
+
+def _shade_nee_samples(cfg: RenderConfig, scene: SceneData,
+                       sky_params: skymod.SkyParams, sun_dir, rays, o,
+                       normal, frame, slot, seed):
+    """The NEE samples: the sun-cone sample (or, with an envmap under MIS,
+    the environment draw; with an envmap without MIS, none: the light
+    takes every NEE sample), the 50/50 strategy coin, and the light pick
+    (several spheres, emissive triangles with their two-sided normal,
+    delta lights) with its surface sample and geometry factors.  Returns
+    a dict of what the estimators read."""
     n = o.shape[0]
-    sun_extent = 1.0 - sky_params.sun_angular_diameter_cos
-    seed, sun_sample = cone_sample(sun_dir.expand(n, 3), sun_extent, seed)
+    mis = cfg.mis == "on"
+    env_nee = mis and scene.has_envmap
+    nee = dict(sun_radiance_env=None, e_pdf=None)
+    if env_nee:
+        sun_sample, nee["sun_radiance_env"], nee["e_pdf"] = \
+            _env_nee_sample(scene, rays, frame, slot)
+    elif scene.has_envmap:
+        sun_sample = sun_dir.expand(n, 3)  # no analytic sun under an envmap
+    else:
+        sun_extent = 1.0 - sky_params.sun_angular_diameter_cos
+        seed, sun_sample = cone_sample(sun_dir.expand(n, 3), sun_extent,
+                                       seed)
     sun_cos = dot(normal, sun_sample)
     # side stream: the coin leaves the main shade stream untouched
     _, cs_u = rng.random_float(
         rng.seed_from(frame, rays["pixel"], slot, 0, 0xC0F1))
     choose_sun = cs_u < 0.5
-    if scene.n_spheres == 0:
-        # no sphere and so no light: inert stand-ins keep the shapes and
-        # the draws (radius 1 avoids a masked /0); has_light is False
-        light_c = torch.zeros(3, dtype=o.dtype, device=o.device)
-        light_r = torch.ones((), dtype=o.dtype, device=o.device)
-        light_e = torch.zeros(3, dtype=o.dtype, device=o.device)
+    inv_p_sun = inv_p_light = 2.0
+    if scene.has_envmap and not env_nee:
+        # every NEE sample goes to the lights; the envmap arrives through
+        # BSDF rays
+        choose_sun = torch.zeros_like(choose_sun)
+        inv_p_light = 1.0
+
+    lights = scene.light_indices
+    n_tri_l, n_delta = scene.n_tri_lights, scene.n_delta_lights
+    multi, total = _n_lights(scene)
+    has_light = True if multi else scene.light_index >= 0
+    pick = None
+    if multi:
+        # one light a ray from a side stream (single-light scenes keep
+        # their streams), one uniform pair for whichever shape it picked
+        _, lu = rng.random_float(
+            rng.seed_from(frame, rays["pixel"], slot, 0, 0x11F7))
+        pick, n_lights = _pick_light(cfg, scene, lu, total)
+        if scene.n_spheres == 0:
+            # only triangle and delta lights: inert stand-ins (radius 1
+            # avoids a masked /0), every sphere pick masked off below
+            light_c = torch.zeros((n, 3), dtype=o.dtype, device=o.device)
+            light_r = torch.ones((n,), dtype=o.dtype, device=o.device)
+            light_e = torch.zeros((n, 3), dtype=o.dtype, device=o.device)
+        else:
+            base = lights[0] if lights else 0
+            light_c = scene.sphere_center[base].expand(n, 3)
+            light_r = scene.sphere_radius[base].expand(n)
+            light_e = scene.sphere_emission[base].expand(n, 3)
+        for k in range(1, len(lights)):
+            sel = pick == k
+            light_c = torch.where(_col(sel), scene.sphere_center[lights[k]],
+                                  light_c)
+            light_r = torch.where(sel, scene.sphere_radius[lights[k]],
+                                  light_r)
+            light_e = torch.where(_col(sel),
+                                  scene.sphere_emission[lights[k]], light_e)
+        seed, lu1 = rng.random_float(seed)
+        seed, lu2 = rng.random_float(seed)
+        lp = sphere_surface_from_uniforms(light_c, _col(light_r), lu1, lu2)
+        n_l = normalize(lp - light_c)
+        area = 4.0 * PI * light_r * light_r
+        if n_tri_l:
+            tl = scene.tri_lights
+            idx = torch.clamp(pick - len(lights), 0, tl.shape[0] - 1).long()
+            row = tl[idx]  # [N, 13]
+            lp_tri = triangle_sample_from_uniforms(
+                row[:, 0:3], row[:, 3:6], row[:, 6:9], lu1, lu2)
+            tn = cross(row[:, 3:6], row[:, 6:9])
+            tn = tn / _col(torch.clamp(torch.sqrt(torch.clamp(
+                dot(tn, tn), min=1e-30)), min=1e-30))
+            is_tl = (pick >= len(lights)) & (pick < len(lights) + n_tri_l)
+            lp = torch.where(_col(is_tl), lp_tri, lp)
+            light_e = torch.where(_col(is_tl), row[:, 9:12], light_e)
+            area = torch.where(is_tl, row[:, 12], area)
+            # two-sided emitter: the light normal faces the shading point
+            sgn = torch.sign(dot(tn, o - lp) + 1e-30)
+            n_l = torch.where(_col(is_tl), tn * _col(sgn), n_l)
     else:
-        li = max(scene.light_index, 0)
-        light_c = scene.sphere_center[li]
-        light_r = scene.sphere_radius[li]
-        light_e = scene.sphere_emission[li]
-    seed, lp = sphere_surface_sample(light_c.expand(n, 3), light_r, seed)
-    n_l = normalize(lp - light_c)
-    area = 4.0 * PI * light_r * light_r
+        if scene.n_spheres == 0:
+            # no sphere and so no light: inert stand-ins keep the shapes and
+            # the draws (radius 1 avoids a masked /0); has_light is False
+            light_c = torch.zeros(3, dtype=o.dtype, device=o.device)
+            light_r = torch.ones((), dtype=o.dtype, device=o.device)
+            light_e = torch.zeros(3, dtype=o.dtype, device=o.device)
+        else:
+            li = max(scene.light_index, 0)
+            light_c = scene.sphere_center[li]
+            light_r = scene.sphere_radius[li]
+            light_e = scene.sphere_emission[li]
+        n_lights = 1.0
+        seed, lp = sphere_surface_sample(light_c.expand(n, 3), light_r, seed)
+        n_l = normalize(lp - light_c)
+        area = 4.0 * PI * light_r * light_r
     lvec = lp - o
     ldist2 = dot(lvec, lvec)
     ldist = torch.sqrt(torch.clamp(ldist2, min=1e-20))
@@ -346,29 +621,83 @@ def _shade_nee_samples(scene: SceneData, sky_params: skymod.SkyParams,
     cos_surf = dot(normal, ldir)
     cos_light = dot(n_l, -ldir)
     solid_angle = cos_light * area / torch.clamp(ldist2, min=1e-20)
-    return (seed, sun_sample, sun_cos, choose_sun, light_e, ldir, ldist,
-            cos_surf, cos_light, solid_angle)
+    if n_delta:
+        # a picked delta light replaces the area sample: light_e its
+        # intensity and solid_angle 1/d^2 (directional: its irradiance and
+        # 1), cos_light pinned to 1; a spot's smooth Hermite falloff
+        # between cos_outer and cos_inner
+        first = len(lights) + n_tri_l
+        drow = scene.delta_lights[torch.clamp(pick - first, 0,
+                                              n_delta - 1).long()]
+        d_kind = drow[:, 0]
+        d_axis = drow[:, 4:7]  # unit, light -> scene
+        is_dl = pick >= first
+        is_ddir = is_dl & (d_kind >= 2.0)
+        dl_vec = drow[:, 1:4] - o
+        dl_d2 = torch.clamp(dot(dl_vec, dl_vec), min=1e-12)
+        dl_dist = torch.sqrt(dl_d2)
+        dl_ldir = torch.where(_col(is_ddir), -d_axis, dl_vec / _col(dl_dist))
+        cd = dot(d_axis, -dl_ldir)
+        tt = torch.clamp((cd - drow[:, 11])
+                         / torch.clamp(drow[:, 10] - drow[:, 11], min=1e-6),
+                         0.0, 1.0)
+        one = torch.ones_like(tt)
+        fall = torch.where(d_kind == 1.0, tt * tt * (3.0 - 2.0 * tt), one)
+        ldir = torch.where(_col(is_dl), dl_ldir, ldir)
+        ldist = torch.where(is_dl, torch.where(
+            is_ddir, torch.full_like(dl_dist, VERY_FAR), dl_dist), ldist)
+        cos_surf = torch.where(is_dl, dot(normal, dl_ldir), cos_surf)
+        cos_light = torch.where(is_dl, one, cos_light)
+        solid_angle = torch.where(
+            is_dl, torch.where(is_ddir, fall, fall / dl_d2), solid_angle)
+        light_e = torch.where(_col(is_dl), drow[:, 7:10], light_e)
+    nee.update(seed=seed, sun_sample=sun_sample, sun_cos=sun_cos,
+               choose_sun=choose_sun, inv_p_sun=inv_p_sun,
+               inv_p_light=inv_p_light, has_light=has_light, pick=pick,
+               n_lights=n_lights, light_e=light_e, area=area, ldir=ldir,
+               ldist=ldist, ldist2=ldist2, cos_surf=cos_surf,
+               cos_light=cos_light, solid_angle=solid_angle)
+    return nee
 
 
 def _shade_nee_weights(cfg: RenderConfig, scene: SceneData,
                        sky_params: skymod.SkyParams, d, normal, direct, hit,
-                       refl, sun_dir, sun_sample, sun_cos, choose_sun,
-                       light_e, ldir, ldist, cos_surf, cos_light,
-                       solid_angle, ggx=None):
+                       refl, sun_dir, nee, ggx=None):
     """DIFF and PHONG NEE estimators, and GGX's when ``ggx`` = (is_ggx,
-    alpha, f0) is given; returns the shadow-queue fields and the
-    reflection vector the PHONG bounce reuses."""
+    alpha, f0) is given, from the samples of :func:`_shade_nee_samples`;
+    under MIS the NEE-side balance weights (a delta light's weight 1).
+    Returns the shadow-queue fields, the reflection vector the PHONG
+    bounce reuses, the DIFF/PHONG masks, the BSDF pdf toward a direction
+    (the bounce's MIS pdf) and the sun strategy's solid-angle pdf (the
+    miss path's MIS weight; None without MIS)."""
     eps = cfg.epsilon
-    inv_p_sun = inv_p_light = 2.0  # 50/50 strategy coin
-    has_light = scene.light_index >= 0
-    sun_radiance = skymod.sun(sun_sample, sun_dir, sky_params)
-    c_diff = c_spec = 1e-5  # the reference's baked sun solid angle
+    mis = cfg.mis == "on"
+    env_nee = mis and scene.has_envmap
+    sun_sample, sun_cos = nee["sun_sample"], nee["sun_cos"]
+    choose_sun, has_light = nee["choose_sun"], nee["has_light"]
+    inv_p_sun, inv_p_light = nee["inv_p_sun"], nee["inv_p_light"]
+    n_lights, light_e = nee["n_lights"], nee["light_e"]
+    ldir, ldist, cos_surf = nee["ldir"], nee["ldist"], nee["cos_surf"]
+    cos_light, solid_angle = nee["cos_light"], nee["solid_angle"]
+    if env_nee:
+        sun_radiance = nee["sun_radiance_env"]
+    elif scene.has_envmap:
+        sun_radiance = torch.zeros_like(direct)
+    else:
+        sun_radiance = skymod.sun(sun_sample, sun_dir, sky_params)
+    # the sun strategy's scales: the reference's baked 1e-5 solid angle;
+    # the env draw is radiance over pdf already, so the true BRDF factors
+    c_diff = INV_PI if env_nee else 1e-5
+    c_spec = 1.0 if env_nee else 1e-5
 
     diff_sun_color = inv_p_sun * direct * sun_radiance \
         * _col(sun_cos * c_diff)
     diff_sun_ok = choose_sun & (sun_cos > 0)
-    light_e2 = light_e[None]
-    nl_col = inv_p_light  # one light: its pick pdf is 1
+    light_e2 = light_e if light_e.ndim == 2 else light_e[None]
+    # 1/(strategy pdf x pick pdf): a float under a uniform pick, a column
+    # under a power pick
+    nl_col = inv_p_light * n_lights if isinstance(n_lights, float) \
+        else _col(inv_p_light * n_lights)
     diff_light_color = light_e2 * nl_col * direct \
         * _col(solid_angle * INV_PI * cos_surf)
     diff_light_ok = ~choose_sun & (cos_surf > 0) & (cos_light > 0) & has_light
@@ -414,11 +743,56 @@ def _shade_nee_weights(cfg: RenderConfig, scene: SceneData,
         shadow_color = torch.where(
             _col(is_ggx), torch.where(sun_c, ggx_sun_color, ggx_light_color),
             shadow_color)
-    # sun shadows use the ShadowQueue default max distance
+
+    def bsdf_pdf_toward(ddir):
+        """Solid-angle pdf of this vertex's BSDF sampler producing
+        ``ddir`` (0 for delta BSDFs: their paths carry last_specular)."""
+        c = dot(normal, ddir)
+        zero = torch.zeros_like(c)
+        p = torch.where(is_diff, torch.clamp(c, min=0.0) * INV_PI, zero)
+        pc = torch.clamp(dot(ddir, w_refl), min=0.0)
+        p = torch.where(is_phong,
+                        (pe + 1.0) * 0.5 * INV_PI * torch.pow(pc, pe), p)
+        if ggx is not None:
+            view_l = -d
+            h_l = normalize(view_l + ddir)
+            nv_l = torch.clamp(dot(normal, view_l), min=1e-6)
+            p_ggx = ggx_g1(nv_l, ggx_alpha) \
+                * ggx_d_vec(normal, h_l, ggx_alpha) / (4.0 * nv_l)
+            p = torch.where(is_ggx, p_ggx, p)
+        return p
+
+    p_sun_sa = None
+    if mis:
+        # NEE-side balance weights p_strategy / (p_strategy + p_bsdf); the
+        # emitter-hit and miss sides apply the complementary ones
+        if env_nee:
+            p_sun_sa = nee["e_pdf"] * (1.0 / inv_p_sun)
+        else:
+            sun_extent = 1.0 - sky_params.sun_angular_diameter_cos
+            p_sun_sa = (1.0 / inv_p_sun) / (2.0 * PI * sun_extent)
+        w_nee_sun = p_sun_sa / torch.clamp(
+            p_sun_sa + bsdf_pdf_toward(sun_sample), min=1e-12)
+        p_l_sa = (1.0 / inv_p_light) / n_lights * nee["ldist2"] \
+            / torch.clamp(cos_light * nee["area"], min=1e-12)
+        w_nee_light = p_l_sa / torch.clamp(p_l_sa + bsdf_pdf_toward(ldir),
+                                           min=1e-12)
+        if scene.n_delta_lights:
+            # a BSDF ray never hits a delta light: NEE alone, weight 1
+            first = len(scene.light_indices) + scene.n_tri_lights
+            w_nee_light = torch.where(nee["pick"] >= first,
+                                      torch.ones_like(w_nee_light),
+                                      w_nee_light)
+        w_nee = torch.where(choose_sun, w_nee_sun, w_nee_light)
+        shadow_color = shadow_color * _col(w_nee)
+    # sun shadows use the ShadowQueue default max distance; triangle
+    # lights are BVH geometry, so their shadow range stops a hair short of
+    # the sampled point (sphere lights keep the reference's exact range)
+    ldist_occ = ldist * (1.0 - 1e-3) if scene.n_tri_lights else ldist
     shadow_maxd = torch.where(choose_sun, torch.full_like(ldist, VERY_FAR),
-                              ldist)
+                              ldist_occ)
     return (shadow_ok, shadow_dir, shadow_color, shadow_maxd, w_refl,
-            is_diff, is_phong)
+            is_diff, is_phong, bsdf_pdf_toward, p_sun_sa)
 
 
 def _glass_eta(cfg: RenderConfig, scene: SceneData, rays, direct, hit,
@@ -459,12 +833,14 @@ def _glass_eta(cfg: RenderConfig, scene: SceneData, rays, direct, hit,
 def _shade_bounce(cfg: RenderConfig, scene: SceneData, rays, d, o, normal,
                   direct, hit, refl, is_tri, is_sphere, srow, rough_tri,
                   outside, is_diff, is_phong, w_refl, obj_color, t_safe,
-                  seed, frame, slot, ggx=None):
+                  seed, frame, slot, ggx=None, bsdf_pdf_toward=None):
     """Bounce sampling: DIFF cosine hemisphere, SPEC mirror, REFR Fresnel/
     TIR/Beer-Lambert (per-triangle IOR, dispersion), PHONG lobe with
     rejection, and under the scene's flags the GGX VNDF lobe (``ggx`` =
-    (is_ggx, alpha)) and RREFR rough glass.  Returns (seed, new_dir,
-    direct, new_last_spec, origin_out)."""
+    (is_ggx, alpha)) and RREFR rough glass.  Under MIS
+    (``bsdf_pdf_toward`` given) also the pdf of the sampled direction, 0
+    for a delta-born ray (mirror and both glass branches).  Returns (seed,
+    new_dir, direct, new_last_spec, next_bsdf_pdf or None, origin_out)."""
     eps = cfg.epsilon
     seed, diff_dir = cosine_hemisphere_sample(normal, seed)
     diff_new_dir = torch.where(_col(rays["bounces"] < cfg.max_bounces),
@@ -570,6 +946,12 @@ def _shade_bounce(cfg: RenderConfig, scene: SceneData, rays, d, o, normal,
     new_last_spec = (hit & (refl == SPEC)) | (is_refr & refr_reflects)
     if scene.has_rrefr:
         new_last_spec = new_last_spec | is_rrefr
+    next_bsdf_pdf = None
+    if bsdf_pdf_toward is not None:
+        is_delta_born = new_last_spec | (is_refr & ~refr_reflects)
+        next_bsdf_pdf = torch.where(
+            is_delta_born, torch.zeros_like(t_safe),
+            torch.clamp(bsdf_pdf_toward(new_dir), min=1e-8))
     zero = torch.zeros_like(normal)
     origin_out = o \
         + torch.where(_col(is_refr & ~refr_reflects), -2.0 * eps * normal,
@@ -579,7 +961,7 @@ def _shade_bounce(cfg: RenderConfig, scene: SceneData, rays, d, o, normal,
         # transmitted rough-glass rays start behind the surface, like REFR
         origin_out = origin_out + torch.where(_col(rr_transmit),
                                               -2.0 * eps * normal, zero)
-    return seed, new_dir, direct, new_last_spec, origin_out
+    return seed, new_dir, direct, new_last_spec, next_bsdf_pdf, origin_out
 
 
 def _shade(cfg: RenderConfig, scene: SceneData, sky_params: skymod.SkyParams,
@@ -621,22 +1003,24 @@ def _shade(cfg: RenderConfig, scene: SceneData, sky_params: skymod.SkyParams,
     o = o + normal * eps
 
     last_spec_in = rays["last_specular"]
-    color, direct = _shade_emitter_hit(srow, hit, refl, last_spec_in, direct)
+    mis = cfg.mis == "on"
+    color, direct = _shade_emitter_hit(
+        cfg, scene, rays, d, normal, t_safe, hit, refl, refl_tri, color_tri,
+        rough_tri, is_sphere, srow, direct)
 
     seed = rng.seed_from(frame, rays["pixel"], slot, 0, 0x5ADE)
-    (seed, sun_sample, sun_cos, choose_sun, light_e, ldir, ldist, cos_surf,
-     cos_light, solid_angle) = _shade_nee_samples(
-        scene, sky_params, sun_dir, rays, o, normal, frame, slot, seed)
+    nee = _shade_nee_samples(cfg, scene, sky_params, sun_dir, rays, o,
+                             normal, frame, slot, seed)
     (shadow_ok, shadow_dir, shadow_color, shadow_maxd, w_refl, is_diff,
-     is_phong) = _shade_nee_weights(
-        cfg, scene, sky_params, d, normal, direct, hit, refl, sun_dir,
-        sun_sample, sun_cos, choose_sun, light_e, ldir, ldist, cos_surf,
-        cos_light, solid_angle,
+     is_phong, bsdf_pdf_toward, p_sun_sa) = _shade_nee_weights(
+        cfg, scene, sky_params, d, normal, direct, hit, refl, sun_dir, nee,
         ggx=None if ggx is None else (*ggx, obj_color))
-    seed, new_dir, direct, new_last_spec, origin_out = _shade_bounce(
-        cfg, scene, rays, d, o, normal, direct, hit, refl, is_tri, is_sphere,
-        srow, rough_tri, outside, is_diff, is_phong, w_refl, obj_color,
-        t_safe, seed, frame, slot, ggx=ggx)
+    seed, new_dir, direct, new_last_spec, next_bsdf_pdf, origin_out = \
+        _shade_bounce(cfg, scene, rays, d, o, normal, direct, hit, refl,
+                      is_tri, is_sphere, srow, rough_tri, outside, is_diff,
+                      is_phong, w_refl, obj_color, t_safe, nee["seed"],
+                      frame, slot, ggx=ggx,
+                      bsdf_pdf_toward=bsdf_pdf_toward if mis else None)
 
     # Russian roulette
     p = torch.clamp(direct.amax(-1), max=1.0)
@@ -645,15 +1029,39 @@ def _shade(cfg: RenderConfig, scene: SceneData, sky_params: skymod.SkyParams,
     direct_out = torch.where(_col(survive),
                              direct / _col(torch.clamp(p, min=1e-20)), direct)
 
-    # miss: sky radiance (sun disc only for specular-born rays)
-    sky_v, sunsky_v = skymod.sky_and_sunsky(d, sun_dir, sky_params)
-    miss_col = torch.where(_col(last_spec_in), sunsky_v, sky_v)
+    # miss: the environment map, or the sky (the sun disc only for
+    # specular-born rays, or under MIS balance-weighted inside its cone)
+    if scene.has_envmap:
+        miss_col = _sample_envmap(scene, d, cfg.texture_filter)
+        if mis:
+            # the reverse weight of the environment draw, at the nearest
+            # texel's pdf; delta-born rays (pdf 0) keep weight 1
+            pdf_in = rays["bsdf_pdf"]
+            w_env = torch.where(
+                last_spec_in | (pdf_in <= 0.0), torch.ones_like(pdf_in),
+                pdf_in / torch.clamp(pdf_in + _env_pdf_nearest(scene, d)
+                                     * (1.0 / nee["inv_p_sun"]), min=1e-12))
+            miss_col = miss_col * _col(w_env)
+    else:
+        sky_v, sunsky_v = skymod.sky_and_sunsky(d, sun_dir, sky_params)
+        if mis:
+            pdf_in = rays["bsdf_pdf"]
+            in_cone = dot(d, sun_dir) > sky_params.sun_angular_diameter_cos
+            w_sun = torch.where(
+                last_spec_in | ~in_cone | (pdf_in <= 0.0),
+                torch.ones_like(pdf_in),
+                pdf_in / torch.clamp(pdf_in + p_sun_sa, min=1e-12))
+            miss_col = sky_v + _col(w_sun) * (sunsky_v - sky_v)
+        else:
+            miss_col = torch.where(_col(last_spec_in), sunsky_v, sky_v)
     color = color + torch.where(_col(hit), torch.zeros_like(color),
                                 rays["direct"] * miss_col)
 
     next_rays = dict(origin=origin_out, direction=new_dir, direct=direct_out,
                      pixel=rays["pixel"], bounces=rays["bounces"] + 1,
                      last_specular=new_last_spec)
+    if mis:
+        next_rays["bsdf_pdf"] = next_bsdf_pdf
     shadow = dict(origin=o, direction=shadow_dir, color=shadow_color,
                   max_dist=shadow_maxd, valid=shadow_ok)
     return color, survive, next_rays, shadow
@@ -769,9 +1177,15 @@ def merge_queue(cfg: RenderConfig, state: RenderState,
     def merge(car, new):
         return torch.where(keep[:, None] if new.ndim == 2 else keep, car, new)
 
-    return {k: merge(getattr(state, k), gen[k])
+    rays = {k: merge(getattr(state, k), gen[k])
             for k in ("origin", "direction", "direct", "pending", "pixel",
                       "bounces", "last_specular")}
+    if cfg.mis == "on":
+        # fresh primaries are specular-born (their pdf is not read);
+        # carried rays keep the pdf of the sample that made them
+        rays["bsdf_pdf"] = merge(state.bsdf_pdf, torch.ones_like(
+            state.bsdf_pdf))
+    return rays
 
 
 def render_step(state: RenderState, scene: SceneData, camera: CameraParams,
@@ -827,6 +1241,8 @@ def render_step(state: RenderState, scene: SceneData, camera: CameraParams,
         direct_s = next_rays["direct"][order]
         pend_s = pend[order]
         packed_s = packed[order]
+        bsdf_pdf_s = next_rays["bsdf_pdf"][order] if cfg.mis == "on" \
+            else state.bsdf_pdf
         n_carried = survive.sum()
 
     # 6. flush the terminated rays' pending radiance (+1 path count),
@@ -839,7 +1255,8 @@ def render_step(state: RenderState, scene: SceneData, camera: CameraParams,
         pending=pend_s, pixel=packed_s >> 5, bounces=(packed_s >> 1) & 15,
         last_specular=(packed_s & 1).to(torch.bool), n_carried=n_carried,
         start_position=start_next, frame=(state.frame + 1) & 0xFFFFFFFF,
-        shadow_rays=state.shadow_rays + shadow["valid"].sum())
+        shadow_rays=state.shadow_rays + shadow["valid"].sum(),
+        bsdf_pdf=bsdf_pdf_s)
 
 
 class _Graph:

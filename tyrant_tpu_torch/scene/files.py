@@ -1,10 +1,13 @@
 """Scene files written from arrays: a binary PLY mesh (with smooth vertex
 normals if asked), a small OBJ/MTL asset, a JSON description that places
-a mesh and instances of the asset, and a sphere-free glTF binary.
+a mesh and instances of the asset, a sphere-free glTF binary, a
+procedural HDR sky as an equirectangular PFM, and a JSON description of
+a lit scene (emissive spheres, point/spot/directional lights, the
+envmap) with the LIGHT triangles of its mesh (``lamp_triangles``).
 
-``chip_smoke.py`` and the CPU tests build the loaded-scene path from
-these files, so it needs no download; the loaders read them back as they
-read any other file.
+``chip_smoke.py`` and the CPU tests build the loaded-scene and the lights
+paths from these files, so they need no download; the loaders read them
+back as they read any other file.
 """
 
 from __future__ import annotations
@@ -181,3 +184,101 @@ def write_glb(path, v0, v1, v2) -> str:
                 + struct.pack("<I", len(js)) + b"JSON" + js
                 + struct.pack("<I", len(blob)) + b"BIN\0" + blob)
     return str(path)
+
+
+# the procedural sky's one bright patch: where it sits as (u, v), its
+# side in texels and its radiance
+SKY_SUN_UV = (0.3, 0.35)
+SKY_SUN_TEXELS = 2
+SKY_SUN_RADIANCE = (400.0, 360.0, 300.0)
+
+
+def sky_envmap(height: int, width: int):
+    """A procedural HDR equirect map [height, width, 3] float32 (z up, row
+    0 at the zenith, as the renderer reads it): a sky gradient from deep
+    blue at the zenith to a pale horizon, a dark ground below, and one
+    small bright patch (``SKY_SUN_*``)."""
+    v = (np.arange(height, dtype=np.float64) + 0.5) / height
+    up = np.clip(1.0 - 2.0 * v, 0.0, 1.0)[:, None]   # 1 at the zenith
+    zenith = np.array([0.15, 0.3, 0.9])
+    horizon = np.array([0.9, 0.85, 0.8])
+    sky = horizon + (zenith - horizon) * up ** 0.5
+    ground = np.array([0.08, 0.07, 0.06])
+    row = np.where((v < 0.5)[:, None], sky, ground)
+    em = np.repeat(row[:, None, :], width, axis=1)
+    y0 = int(SKY_SUN_UV[1] * height)
+    x0 = int(SKY_SUN_UV[0] * width)
+    em[y0:y0 + SKY_SUN_TEXELS, x0:x0 + SKY_SUN_TEXELS] = SKY_SUN_RADIANCE
+    return em.astype(np.float32)
+
+
+def write_envmap_pfm(path, height: int, width: int) -> str:
+    """:func:`sky_envmap` written as a PFM file; returns the path."""
+    from ..utils.pfm import write_pfm
+    write_pfm(str(path), sky_envmap(height, width))
+    return str(path)
+
+
+# the lights path's three delta lights: a warm point lamp, a spot and a
+# dim directional fill, placed over the benchmark terrain in pose 0's view
+DELTA_LIGHTS = (
+    {"type": "point", "position": [-20.0, 10.0, 45.0],
+     "intensity": [3000.0, 2600.0, 2000.0]},
+    {"type": "spot", "position": [30.0, 20.0, 80.0],
+     "direction": [-0.3, -0.2, -1.0], "intensity": [12000.0, 12000.0,
+                                                     14000.0],
+     "inner_deg": 12.0, "outer_deg": 30.0},
+    {"type": "directional", "direction": [0.4, 0.3, -1.0],
+     "intensity": [0.4, 0.4, 0.45]})
+_SPHERE_LOOKS = {0: "diffuse", 1: "mirror", 2: "glass", 3: "phong",
+                 4: "light"}
+# the default seven with two more made emissive (sphere 0 and the red
+# sphere 5), by index
+EMISSIVE_SPHERES = {0: (2.0, 1.6, 1.2), 5: (3.0, 0.6, 0.4)}
+# the emission of the mesh triangles that lamp_triangles makes lights
+LAMP_EMISSION = (4.0, 3.5, 3.0)
+
+
+def write_lights_description(path, envmap=None, render=None) -> str:
+    """A JSON description of the lights path's scene without its mesh: the
+    default seven spheres with those in ``EMISSIVE_SPHERES`` made lights,
+    the ``DELTA_LIGHTS``, the ``envmap`` file (written relative to the
+    description's folder when it lies in it) and the ``render`` section
+    (for example mis and light_sampling).  The mesh comes from the caller,
+    its lamps from :func:`lamp_triangles`."""
+    from .scene import Spheres
+    s = Spheres.default_seven()
+    spheres = []
+    for i in range(s.count):
+        look = "light" if i in EMISSIVE_SPHERES \
+            else _SPHERE_LOOKS[int(s.refl[i])]
+        e = {"center": s.center[i].tolist(), "radius": float(s.radius[i]),
+             "color": s.color[i].tolist(), "material": look}
+        if look == "light":
+            e["emission"] = list(EMISSIVE_SPHERES.get(
+                i, s.emission[i].tolist()))
+        spheres.append(e)
+    desc = {"spheres": spheres, "default_spheres": False,
+            "lights": [dict(d) for d in DELTA_LIGHTS]}
+    if envmap is not None:
+        env = Path(envmap).resolve()
+        base = Path(path).resolve().parent
+        desc["envmap"] = env.name if env.parent == base else str(env)
+    if render:
+        desc["render"] = dict(render)
+    Path(path).write_text(json.dumps(desc, indent=1))
+    return str(path)
+
+
+def lamp_triangles(n_tris: int, n_lamps: int):
+    """(tri_refl [n_tris] i32, tri_color [n_tris, 3] f32) of a mesh with
+    ``n_lamps`` of its triangles, taken with a stride through the triangle
+    list, made LIGHT of emission ``LAMP_EMISSION``; the rest diffuse
+    white, the default."""
+    from .scene import LIGHT
+    refl = np.zeros(n_tris, np.int32)
+    color = np.ones((n_tris, 3), np.float32)
+    lamps = np.arange(n_lamps) * (n_tris // n_lamps)
+    refl[lamps] = LIGHT
+    color[lamps] = LAMP_EMISSION
+    return refl, color

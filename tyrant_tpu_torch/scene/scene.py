@@ -1,15 +1,17 @@
 """Scene container, the port of ``tyrant_tpu/scene/scene.py``: analytic
 spheres plus one triangle mesh (or the flattened union of instanced
 meshes) loaded from PLY, OBJ/MTL, STL, glTF or a JSON description, with
-per-triangle DIFF/SPEC/REFR/PHONG/GGX/RREFR materials, a per-triangle
-glass IOR and smooth vertex normals.
+per-triangle DIFF/SPEC/REFR/PHONG/GGX/RREFR/LIGHT materials, a
+per-triangle glass IOR, smooth vertex normals, and the lights: emissive
+spheres and triangles, point/spot/directional delta lights and an
+equirectangular environment map, with the per-light power table and the
+alias rows of the power and environment importance samplers.
 
 Host loading and packing are the JAX package's numpy code, so every
 table equals the JAX one bit for bit.  Scene features the port does not
 shade yet raise ValueError, naming them, when the scene is uploaded
 (:meth:`Scene.to_device`): textures and normal, roughness, alpha, blend
-and metal maps, emissive triangles, delta lights, environment maps and
-several emissive spheres.
+and metal maps.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from ..config import BVHConfig
 from ..ops.traverse import LEAF_WIDTH, BVHDevice
 from . import ply
 from .bvh import BVHArrays, build_bvh, bvh_stats, pack_meta
+from .envlight import LUM_RGB, build_alias, env_tables
 
 DIFF, SPEC, REFR, PHONG, LIGHT, GGX = 0, 1, 2, 3, 4, 5
 # rough dielectric ("frosted glass"); ids 6/7 are the JAX package's
@@ -79,9 +82,10 @@ DL_POINT, DL_SPOT, DL_DIRECTIONAL = 0, 1, 2
 
 @dataclasses.dataclass
 class DeltaLights:
-    """Zero-area analytic lights: point / spot / directional (the host
-    record the glTF and JSON loaders return; the port does not shade them
-    yet, so a scene with any is refused when it is uploaded).
+    """Zero-area analytic lights: point / spot / directional, reachable
+    only through next-event estimation (a BSDF ray never hits one), so
+    they join the NEE light pick beside the area lights with an MIS
+    weight of 1.
 
     ``intensity`` is radiant intensity (W/sr) for point/spot lights and
     irradiance on a perpendicular surface for directional lights;
@@ -143,22 +147,52 @@ class DeltaLights:
                    cos_inner=np.asarray(ci, np.float32),
                    cos_outer=np.asarray(co, np.float32))
 
+    def pack(self) -> np.ndarray:
+        """[L, 12] device rows: kind, pos.xyz, dir.xyz, intensity.rgb,
+        cos_inner, cos_outer (read by shade's NEE pick)."""
+        out = np.zeros((self.count, 12), np.float32)
+        out[:, 0] = self.kind.astype(np.float32)
+        out[:, 1:4] = self.position
+        out[:, 4:7] = self.direction
+        out[:, 7:10] = self.intensity
+        out[:, 10] = self.cos_inner
+        out[:, 11] = self.cos_outer
+        return out
+
 
 @dataclasses.dataclass
 class SceneData:
     """Device-resident scene tables read by the render step.
 
-    tri_shade [T+pad, 8]: geometric normal.xyz, refl, color.rgb, lane 7
-        (GGX/RREFR perceptual roughness, or a REFR triangle's IOR)
+    tri_shade [T+pad, 8]: geometric normal.xyz, refl, color.rgb (a LIGHT
+        triangle's emission), lane 7 (GGX/RREFR perceptual roughness, a
+        REFR triangle's IOR, or a LIGHT triangle's area
+        0.5 |cross(e1, e2)|, which the MIS emitter-hit pdf reads)
     sphere_table [max(S, 1), 12]: center.xyz, radius, color.rgb,
         emission.rgb, refl, roughness (one inert row when S = 0)
     tri_attr [T+pad, 32] with smooth normals, else [4, 32] zeros:
         v0.xyz, s1.xyz, s2.xyz (the dual basis of the edges: barycentrics
         from the hit point with two dots), lanes 9:16 texture slots,
         n0.xyz, dn1.xyz, dn2.xyz, smooth flag, lanes 26:32 map slots
+    tri_lights [K, 13] (original triangle order), [1, 13] zeros when
+        K = n_tri_lights = 0: v0.xyz, e1.xyz, e2.xyz, emission.rgb, area
+    delta_lights [L, 12] (``DeltaLights.pack``), [1, 12] zeros when L =
+        n_delta_lights = 0
+    light_powers [n_lights] in the pick order (emissive spheres, emissive
+        triangles, delta lights): luminance x area (x the solid angle of
+        a delta light), [1] zeros without lights; ``light_cdf`` and
+        ``light_inv_pdf`` [n_lights] are the power pick's CDF and
+        1 / max(pdf, 1e-30) under the 0.75 power + 0.25 uniform mixture,
+        ``light_total_power`` the sum, all derived from it at upload
+    light_alias [n_lights, 4] beyond 64 lights, else [1, 4] zeros: Vose
+        keep probability, alias index, 1/pdf of each outcome
+    env_data [H*W+1, 4]: row 0 a neutral fallback, then the equirect
+        radiance rgb and, in lane 3, the texel's solid-angle pdf; [1, 4]
+        ones without an envmap.  env_alias [H*W, 12] (``envlight``), [1,
+        12] zeros without.  env_meta (height, width), () without.
 
-    The flags are host booleans; the render step gates each term on them
-    in Python, so a scene without a feature issues no op for it.
+    The flags and counts are host values; the render step gates each term
+    on them in Python, so a scene without a feature issues no op for it.
     ``tri_default_mat``: every triangle is the default material (DIFF,
     colour 1, roughness 0.3: no per-triangle material or colour, no smooth
     normals), so shade needs only a hit triangle's geometric normal, which
@@ -169,7 +203,7 @@ class SceneData:
     sphere_center: torch.Tensor    # [S, 3]
     sphere_radius: torch.Tensor    # [S]
     sphere_emission: torch.Tensor  # [S, 3]
-    light_index: int               # the one emissive sphere, or -1
+    light_index: int               # the first emissive sphere, or -1
     tri_shade: torch.Tensor        # [T+pad, 8] (leaf order)
     sphere_table: torch.Tensor     # [max(S, 1), 12]
     tri_attr: torch.Tensor         # [T+pad, 32] or [4, 32]
@@ -178,10 +212,27 @@ class SceneData:
     has_rrefr: bool = False
     has_var_ior: bool = False
     tri_default_mat: bool = False
+    light_indices: tuple = ()      # every emissive sphere
+    tri_lights: Optional[torch.Tensor] = None
+    n_tri_lights: int = 0
+    delta_lights: Optional[torch.Tensor] = None
+    n_delta_lights: int = 0
+    light_powers: Optional[torch.Tensor] = None
+    light_cdf: Optional[torch.Tensor] = None
+    light_inv_pdf: Optional[torch.Tensor] = None
+    light_total_power: Optional[torch.Tensor] = None
+    light_alias: Optional[torch.Tensor] = None
+    env_data: Optional[torch.Tensor] = None
+    env_alias: Optional[torch.Tensor] = None
+    env_meta: tuple = ()
 
     @property
     def n_spheres(self) -> int:
         return int(self.sphere_center.shape[0])
+
+    @property
+    def has_envmap(self) -> bool:
+        return len(self.env_meta) > 0
 
 
 @dataclasses.dataclass
@@ -271,8 +322,13 @@ class Scene:
                        delta_lights: Optional[DeltaLights] = None) -> "Scene":
         """Build from triangle vertices [T, 3] each, with optional
         per-triangle materials (default: white diffuse), roughness, IOR,
-        corner normals [T, 3, 3] and the texture records of the loaders."""
+        corner normals [T, 3, 3] and the texture records of the loaders.
+        ``envmap`` is an [H, W, 3] array or an image path (a JSON
+        description with meshes passes its envmap's path here)."""
         spheres = spheres or Spheres.default_seven()
+        if isinstance(envmap, str):
+            from .texture import load_texture
+            envmap = load_texture(envmap)
         v0 = np.asarray(v0, np.float32)
         v1 = np.asarray(v1, np.float32)
         v2 = np.asarray(v2, np.float32)
@@ -354,14 +410,7 @@ class Scene:
             ("normal maps", used(self.tri_ntex)),
             ("roughness maps", has_rmap),
             ("metal maps", has_rmap and refl is not None
-             and flagged(self.tri_metal, refl == GGX)),
-            ("emissive triangles", mesh and refl is not None
-             and bool((refl == LIGHT).any())),
-            ("delta lights", self.delta_lights is not None
-             and self.delta_lights.count > 0),
-            ("environment maps", self.envmap is not None),
-            ("several emissive spheres",
-             int((self.spheres.refl == LIGHT).sum()) > 1))
+             and flagged(self.tri_metal, refl == GGX)))
         return [name for name, present in named if present]
 
     def to_device(self, device) -> SceneData:
@@ -413,6 +462,11 @@ class Scene:
         tri_shade[:, 4:7] = tri_color
         # GGX perceptual roughness, clamped: alpha -> 0 degenerates D(h)
         tri_shade[:, 7] = np.clip(tri_rough, 0.03, 1.0)
+        # LIGHT triangles reuse lane 7 for their surface area (the MIS
+        # emitter-hit pdf reads it; a triangle is never both LIGHT and GGX)
+        is_lt = tri_refl == LIGHT
+        if is_lt.any():
+            tri_shade[is_lt, 7] = 0.5 * norm[is_lt, 0]
         # REFR triangles reuse lane 7 for their glass IOR
         has_var_ior = False
         if self.tri_ior is not None and self.bvh is not None:
@@ -448,12 +502,112 @@ class Scene:
         return scene_data(
             bvh_dev, tri_shade, sphere_table, device, n_spheres=s.count,
             tri_attr=tri_attr, smooth_normals=has_smooth,
+            **self._light_tables(),
             has_ggx=bool((s.refl == GGX).any() or (tri_refl == GGX).any()),
             has_rrefr=bool((s.refl == RREFR).any()
                            or (tri_refl == RREFR).any()),
             has_var_ior=has_var_ior,
             tri_default_mat=(self.tri_refl is None and self.tri_color is None
                              and not has_smooth))
+
+    def _light_tables(self) -> dict:
+        """The light tables of :class:`SceneData` as numpy, in the JAX
+        packer's order and float32 arithmetic (tyrant_tpu/scene/scene.py
+        to_device): tri_lights, env_data/env_alias/env_meta,
+        delta_lights, light_powers in the pick order and, beyond 64
+        lights, light_alias; the counts beside them."""
+        out = {}
+        n_tri_lights = 0
+        if self.tri_refl is not None and self.bvh is not None \
+                and (np.asarray(self.tri_refl) == LIGHT).any():
+            lm = np.asarray(self.tri_refl) == LIGHT
+            lv0, le1, le2 = self.tri_vert[lm], self.tri_e1[lm], self.tri_e2[lm]
+            lem = (np.ones((lm.sum(), 3), np.float32)
+                   if self.tri_color is None else
+                   np.asarray(self.tri_color, np.float32)[lm])
+            if self.textures is not None and self.tri_tex is not None:
+                # texture-modulated emitters: NEE and the power table use
+                # the texture's mean (unreachable while textures are
+                # refused on upload)
+                tt = np.asarray(self.tri_tex)[lm]
+                means = np.asarray(
+                    [t[:, :, :3].reshape(-1, 3).mean(0)
+                     for t in self.textures], np.float32)
+                lem = lem * np.where((tt >= 0)[:, None],
+                                     means[np.clip(tt, 0, len(means) - 1)],
+                                     1.0)
+            larea = 0.5 * np.linalg.norm(np.cross(le1, le2), axis=1)
+            tl = np.concatenate([lv0, le1, le2, lem, larea[:, None]],
+                                axis=1).astype(np.float32)
+            n_tri_lights = int(lm.sum())
+            out["tri_lights"] = tl
+        out["n_tri_lights"] = n_tri_lights
+
+        if self.envmap is not None:
+            em = np.asarray(self.envmap, np.float32)
+            eh, ew = em.shape[0], em.shape[1]
+            env_rows = np.ones((eh * ew + 1, 4), np.float32)
+            env_rows[1:, :3] = em[:, :, :3].reshape(eh * ew, 3)
+            pdf_sa, alias_rows = env_tables(em)
+            env_rows[0, 3] = 0.0
+            env_rows[1:, 3] = pdf_sa
+            out.update(env_data=env_rows, env_alias=alias_rows,
+                       env_meta=(float(eh), float(ew)))
+
+        n_delta = 0
+        if self.delta_lights is not None and self.delta_lights.count:
+            out["delta_lights"] = self.delta_lights.pack()
+            n_delta = self.delta_lights.count
+        out["n_delta_lights"] = n_delta
+
+        # per-light powers in the pick order, all terms in float32 so the
+        # emitter-hit pdf, recomputed from the device rows, matches;
+        # delta lights weigh by a solid angle (point 4 pi, spot its cone,
+        # directional 1): any positive weight keeps the estimator unbiased
+        powers = []
+        for li in np.nonzero(self.spheres.refl == LIGHT)[0]:
+            em32 = np.asarray(self.spheres.emission[li], np.float32)
+            r32 = np.float32(self.spheres.radius[li])
+            powers.append(float(np.float32(em32 @ LUM_RGB)
+                                * np.float32(4.0 * np.pi) * r32 * r32))
+        for k in range(n_tri_lights):
+            tl32 = out["tri_lights"]
+            powers.append(float(np.float32(tl32[k, 9:12] @ LUM_RGB)
+                                * tl32[k, 12]))
+        if n_delta:
+            dl = out["delta_lights"]
+            for k in range(n_delta):
+                lum = float(dl[k, 7:10] @ LUM_RGB)
+                kind = dl[k, 0]
+                if kind == 0.0:                    # point
+                    sa = 4.0 * np.pi
+                elif kind == 1.0:                  # spot: cone solid angle
+                    sa = 2.0 * np.pi * (1.0 - 0.5 * (dl[k, 10] + dl[k, 11]))
+                else:                              # directional
+                    sa = 1.0
+                powers.append(lum * sa)
+        out["light_powers"] = np.asarray(powers if powers else [0.0],
+                                         np.float32)
+        if len(powers) > 64:
+            # one Vose alias row [keep, alias, 1/pdf(self), 1/pdf(alias)]
+            # a light, under the 0.75 power + 0.25 uniform mixture that
+            # the CDF pick and the MIS hit side use too
+            n_l = len(powers)
+            total_p = float(np.sum(np.asarray(powers, np.float64)))
+            if total_p > 0.0:
+                pm = (0.75 * np.asarray(powers, np.float64) / total_p
+                      + 0.25 / n_l)
+            else:
+                pm = np.full(n_l, 1.0 / n_l)
+            prob, alias = build_alias(pm)
+            inv = np.where(pm > 0, 1.0 / np.maximum(pm, 1e-300), 0.0)
+            la = np.zeros((n_l, 4), np.float32)
+            la[:, 0] = prob
+            la[:, 1] = alias
+            la[:, 2] = inv
+            la[:, 3] = inv[alias]
+            out["light_alias"] = la
+        return out
 
     def _attr_rows(self, rows: int) -> np.ndarray:
         """tri_attr [rows, 32] for smooth normals: the dual basis of the
@@ -488,18 +642,29 @@ class Scene:
 def scene_data(bvh: BVHDevice, tri_shade, sphere_table, device, *,
                n_spheres: int, tri_attr=None, smooth_normals: bool = False,
                has_ggx: bool = False, has_rrefr: bool = False,
-               has_var_ior: bool = False,
-               tri_default_mat: bool = False) -> SceneData:
-    """SceneData from the numpy shade tables (shared by Scene.to_device and
-    interop).  The sphere columns are the first ``n_spheres`` rows of
-    sphere_table (a zero-sphere scene keeps one inert row there)."""
+               has_var_ior: bool = False, tri_default_mat: bool = False,
+               tri_lights=None, n_tri_lights: int = 0, delta_lights=None,
+               n_delta_lights: int = 0, light_powers=None, light_alias=None,
+               env_data=None, env_alias=None,
+               env_meta: tuple = ()) -> SceneData:
+    """SceneData from the numpy shade and light tables (shared by
+    Scene.to_device and interop); an absent light table gets the JAX
+    package's inert one-row stand-in.  The sphere columns are the first
+    ``n_spheres`` rows of sphere_table (a zero-sphere scene keeps one
+    inert row there).  The power pick's CDF, inverse pdfs and total are
+    derived here from ``light_powers``."""
     def t(a):
         return torch.as_tensor(np.array(a, np.float32), device=device)
+
+    def table(a, shape, fill=0.0):
+        return t(np.full(shape, fill, np.float32) if a is None else a)
     st = np.asarray(sphere_table, np.float32)
     live = st[:n_spheres]
     lights = np.nonzero(live[:, 10] == LIGHT)[0]
     if tri_attr is None:
         tri_attr = np.zeros((4, 32), np.float32)
+    pw = table(light_powers, (1,)).cpu()
+    cdf, inv_pdf, total = _power_pick(pw)
     return SceneData(bvh=bvh, sphere_center=t(live[:, 0:3]),
                      sphere_radius=t(live[:, 3]),
                      sphere_emission=t(live[:, 7:10]),
@@ -508,7 +673,35 @@ def scene_data(bvh: BVHDevice, tri_shade, sphere_table, device, *,
                      tri_attr=t(tri_attr), smooth_normals=smooth_normals,
                      has_ggx=has_ggx, has_rrefr=has_rrefr,
                      has_var_ior=has_var_ior,
-                     tri_default_mat=tri_default_mat)
+                     tri_default_mat=tri_default_mat,
+                     light_indices=tuple(int(i) for i in lights),
+                     tri_lights=table(tri_lights, (1, 13)),
+                     n_tri_lights=int(n_tri_lights),
+                     delta_lights=table(delta_lights, (1, 12)),
+                     n_delta_lights=int(n_delta_lights),
+                     light_powers=pw.to(device), light_cdf=cdf.to(device),
+                     light_inv_pdf=inv_pdf.to(device),
+                     light_total_power=total.to(device),
+                     light_alias=table(light_alias, (1, 4)),
+                     env_data=table(env_data, (1, 4), 1.0),
+                     env_alias=table(env_alias, (1, 12)),
+                     env_meta=tuple(float(v) for v in env_meta))
+
+
+def _power_pick(pw: torch.Tensor):
+    """(cdf, 1 / max(pdf, 1e-30), total power) of the power pick over
+    the light powers ``pw`` [L] (float32, on the CPU): pdf = 0.75 power /
+    total + 0.25 / L, or 1 / L when the total is 0, as the JAX shade
+    traces it (tyrant_tpu/render.py:1171-1194).  The pick of a uniform
+    lu is the number of CDF entries at or below it among the first
+    L - 1."""
+    n_l = pw.shape[0]
+    total = pw.sum()
+    pdfs = torch.where(total > 0,
+                       0.75 * pw / torch.clamp(total, min=1e-30) + 0.25 / n_l,
+                       torch.full_like(pw, 1.0 / n_l))
+    return (torch.cumsum(pdfs, 0), 1.0 / torch.clamp(pdfs, min=1e-30),
+            total)
 
 
 def _override(sc: Scene, spheres, envmap, delta_lights) -> Scene:
