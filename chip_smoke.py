@@ -53,6 +53,20 @@ shadow rays' finite, shrunk ranges toward emissive triangles, which are
 BVH geometry) and the accumulation on a step's queue, and a small render
 on the card against the CPU.
 
+Then the fog path: the main scene under height fog (``FOG``, the slab
+over the terrain's z range), eager and captured at the three poses, with
+the wave kernel at pose 0, and once with the lights "few" and MIS; and
+the textures path: ``scene.files.textured_scene`` on the terrain (albedo,
+normal and roughness/metal maps, 65,536 alpha-cutout leaves and 1,024
+blend triangles, clamp and mirrored wraps, from numpy in memory), eager
+and captured at the three poses under "bilinear", eager at pose 0 under
+"nearest", "trilinear" and with the wave kernel, one texture tap timed as
+``tex_data[idx]`` against ``index_select``, and ``image()`` with the
+denoiser.  Each logs shade's device time with its row gathers counted
+from the trace, holds the traversal kernels against the plain walk on its
+queues and the accumulation on its step's queue, and compares a 32x32
+render on the card with the CPU's.
+
 Run from the root of the repository:
 
     python3 chip_smoke.py
@@ -105,6 +119,7 @@ from tyrant_tpu_torch.scene.instancing import MeshAsset  # noqa: E402
 from tyrant_tpu_torch.scene.ply import load_ply_attrs  # noqa: E402
 from tyrant_tpu_torch.scene.procgen import benchmark_scene, terrain  # noqa: E402
 from tyrant_tpu_torch.scene.scene import Scene  # noqa: E402
+from tyrant_tpu_torch.scene.texture import TextureAtlas  # noqa: E402
 
 DEV = torch.device("cuda")
 STAGES = ("raygen", "extend", "shade", "connect", "sort", "accumulate")
@@ -1641,6 +1656,337 @@ def lights_path(scene_host, cfg: RenderConfig,
     return out
 
 
+def stage_kernels(trace_path: Path, steps: int, stage: str = "shade",
+                  top: int = 6) -> dict:
+    """The device work of one stage of an eager step, from a phase-3
+    trace, kernel by kernel (matched by correlation id as in
+    :func:`stage_split`): ms and ops a step, the row gathers among them
+    (PyTorch's gather and index-select kernels) counted and timed, and
+    the ``top`` kernels by time."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    dev = {e["args"]["correlation"]: (e["name"], e["dur"]) for e in events
+           if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")}
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("cat") == "user_annotation" and e["name"] == stage]
+    by_name: dict = {}
+    for e in events:
+        if e.get("cat") not in ("cuda_runtime", "cuda_driver"):
+            continue
+        rec = dev.get(e.get("args", {}).get("correlation"))
+        if rec is None or not any(a <= e["ts"] <= b for a, b in spans):
+            continue
+        n, us = by_name.get(rec[0], (0, 0.0))
+        by_name[rec[0]] = (n + 1, us + rec[1])
+    gathers = {k: v for k, v in by_name.items()
+               if "gather" in k or "ndexSelect" in k or "index_elementwise"
+               in k}
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
+    return dict(ms=sum(us for _, us in by_name.values()) / 1e3 / steps,
+                ops=sum(n for n, _ in by_name.values()) / steps,
+                gathers=sum(n for n, _ in gathers.values()) / steps,
+                gather_ms=sum(us for _, us in gathers.values()) / 1e3
+                / steps,
+                gather_kernels=sorted(gathers),
+                top=[(k[:60], n / steps, us / 1e3 / steps)
+                     for k, (n, us) in ranked])
+
+
+def log_stage(label: str, sk: dict) -> None:
+    log(f"{label} shade: {sk['ms']:.3f} ms and {sk['ops']:g} device ops a "
+        f"step, {sk['gathers']:g} row gathers a step taking "
+        f"{sk['gather_ms']:.3f} ms ({', '.join(sk['gather_kernels'])}); "
+        "top kernels (name, a step, ms): "
+        + "; ".join(f"{k} {n:g} {ms:.3f}" for k, n, ms in sk["top"]))
+
+
+def shade_taps(ren) -> list:
+    """The texel row indices of every tap one eager shade of ``ren``'s
+    next queue at pose 0 makes, in order (``render._tap_rows`` recorded:
+    one row gather a tap)."""
+    cfg, sc = ren.cfg, ren.scene
+    ren.step(camera_for_pose(0), 1)
+    rays = tr.merge_queue(cfg, ren.state, camera_for_pose(0).to_device(
+        cfg, DEV))
+    t, ident, is_tri = tr._intersect_scene(rays["origin"], rays["direction"],
+                                           sc, ren.tables)
+    taps, tap_rows = [], tr._tap_rows
+
+    def record(table, idx):
+        if table is sc.tex_data:
+            taps.append(idx)
+        return tap_rows(table, idx)
+    tr._tap_rows = record
+    try:
+        tr._shade(cfg, sc, ren.sky_params, ren.sun_dir, rays, t, ident,
+                  is_tri, ren.state.frame)
+    finally:
+        tr._tap_rows = tap_rows
+    return taps
+
+
+def tap_ab(ren, reps: int = 20) -> dict:
+    """One texture tap of a full queue, the first of :func:`shade_taps`
+    (an albedo tap of the step), as ``tex_data[idx]`` against
+    ``torch.index_select(tex_data, 0, idx)``, each on int64 and on int32
+    indices: equal bit for bit, each timed with the L2 evicted before
+    every call (the step's earlier stages leave it cold) and back to
+    back; the bound is the rows read and written once (16 B each) and
+    the 8-byte indices."""
+    taps = shade_taps(ren)
+    table = ren.scene.tex_data
+    idx, idx32 = taps[0].to(torch.int64), taps[0].to(torch.int32)
+    a = table[idx]
+    if not all(same_bits(g, a) for g in (
+            torch.index_select(table, 0, idx), table[idx32],
+            torch.index_select(table, 0, idx32))):
+        raise AssertionError("the row gathers differ")
+    out = dict(taps_a_shade=len(taps), rows=int(idx.numel()),
+               distinct_rows=int(torch.unique(idx).numel()))
+    for name, fn in (("index", lambda: table[idx]),
+                     ("index_select",
+                      lambda: torch.index_select(table, 0, idx)),
+                     ("index_i32", lambda: table[idx32]),
+                     ("index_select_i32",
+                      lambda: torch.index_select(table, 0, idx32))):
+        out[f"{name}_ms"] = cuda_ms(fn, reps, cold=True)
+        out[f"{name}_warm_ms"] = cuda_ms(fn, reps)
+    out["bound_ms"], out["bound_by"] = bound_ms(
+        idx.numel() * (8 + 2 * 16), 0)
+    log(f"texture tap A/B ({out['rows']} rows, {out['distinct_rows']} "
+        f"distinct, {out['taps_a_shade']} taps a shade), L2 evicted (back "
+        "to back): " + ", ".join(
+            f"{name} {out[name + '_ms']:.4f} ({out[name + '_warm_ms']:.4f})"
+            for name in ("index", "index_select", "index_i32",
+                         "index_select_i32"))
+        + f" ms; bound {out['bound_ms']:.4f} ms ({out['bound_by']}); bit "
+        "for bit equal")
+    return out
+
+
+def card_vs_cpu(scene, cfg: RenderConfig, what: str,
+                steps: int = 6) -> float:
+    """A 32x32 render of ``scene`` under ``cfg`` (16,384 rays, pose 0) on
+    the card against the same render on the CPU: the mean absolute
+    difference of the resolved images, which must stay under 0.03."""
+    cfg = dataclasses.replace(cfg, width=32, height=32, num_rays=16_384,
+                              fuse_step_chains="off")
+    imgs = []
+    for dev in ("cuda", "cpu"):
+        ren = tr.Renderer(scene, cfg, device=dev)
+        ren.step(camera_for_pose(0), steps)
+        imgs.append(resolve(ren.state.accum.cpu(), 32, 32))
+        if dev == "cuda":
+            counts = ren.state.accum[:, 3].sum().item()
+    mad = float((imgs[0] - imgs[1]).abs().mean())
+    log(f"{what} card vs cpu at 32x32/16384 rays/{steps} steps: mean "
+        f"|diff| {mad:.3g} ({counts:.0f} paths on the card)")
+    if not mad < 0.03:
+        raise AssertionError(f"{what}: card and CPU renders differ: {mad}")
+    return mad
+
+
+def path_checks(label: str, launches: dict, cap: dict, wave: dict,
+                queues: dict) -> None:
+    """A path's kernels ran on it and agree with their plain versions."""
+    bad = [(q, gen) for q in ("extend", "connect", "aov")
+           for gen in ("mono", "wave") if queues[q][gen]["mismatches"]]
+    if bad or queues["accumulate"]["max_abs_err"] != 0.0:
+        raise AssertionError(f"{label}: mismatches on {bad}")
+    if not (launches["traverse"] > 0 and launches["accumulate"] > 0
+            and cap["launches"]["traverse"] > 0
+            and wave["traverse_wave"] > 0):
+        raise AssertionError(f"the {label} path did not run through the "
+                             f"kernels: {launches}, {cap['launches']}, "
+                             f"{wave}")
+
+
+def textures_path(cfg: RenderConfig, n_tris: int = 1_048_576,
+                  n_leaves: int = 65_536, n_blend: int = 1_024,
+                  poses_run=(0, 1, 2), texture_px=None,
+                  small: dict | None = None) -> dict:
+    """The textured scene (``scene.files.textured_scene`` on
+    ``benchmark_scene(n_tris)``, in memory: albedo, normal and
+    roughness/metal maps, ``n_leaves`` cutout leaves and ``n_blend``
+    blend triangles, clamp and mirrored wraps) under the seven spheres at
+    ``cfg``'s size: the host's seconds (maps, BVH, the atlas with mips,
+    the whole upload with the tangents) and the Renderer's memory; phase
+    3 eager and captured (bit for bit the eager step first) under
+    "bilinear" at ``poses_run``, eager at pose 0 under "nearest",
+    "trilinear" and with the wave kernel, shade's split with its row
+    gathers; the tap A/B; ``image()`` with the denoiser; the kernels on
+    its queues and its step's accumulation; a 32x32 render on the card
+    against the CPU (``small`` sizes its scene)."""
+    texture_px = texture_px or {}
+    t0 = time.perf_counter()
+    mesh = benchmark_scene(n_tris)
+    kw = scene_files.textured_scene(*mesh, n_leaves=n_leaves,
+                                    n_blend=n_blend, **texture_px)
+    maps_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sc = Scene.from_triangles(builder="auto", **kw)
+    bvh_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    TextureAtlas.pack(kw["textures"], mips=True)
+    atlas_s = time.perf_counter() - t0
+    cfg_e = dataclasses.replace(cfg, fuse_step_chains="off",
+                                texture_filter="bilinear")
+    torch.cuda.reset_peak_memory_stats()
+    before_mb = torch.cuda.memory_allocated() / 1e6
+    t0 = time.perf_counter()
+    ren = tr.Renderer(sc, cfg_e)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6
+    sd = ren.scene
+    t0 = time.perf_counter()  # the attribute rows alone: uvs, tangents
+    sc._attr_rows(sd.tri_attr.shape[0], True, True, True, False)
+    attr_s = time.perf_counter() - t0
+    flags = {k: getattr(sd, k) for k in (
+        "has_albedo_tex", "has_normal_maps", "has_rough_maps",
+        "has_alpha_tex", "has_blend", "has_metal_maps", "has_ggx")}
+    atlas_mb = sd.tex_data.numel() * 4 / 1e6
+    attr_mb = sd.tri_attr.numel() * 4 / 1e6
+    log(f"textures: {sc.stats['triangles']} triangles ({n_leaves} leaves, "
+        f"{n_blend} blend), {len(sd.tex_meta)} maps "
+        f"{[m[1:5] for m in sd.tex_meta]} with {len(sd.tex_meta[0][5])} "
+        f"levels on the first; {ren.tables.rows.shape[0]} fat rows, max "
+        f"depth {ren.tables.max_depth}; maps made in {maps_s:.2f} s, BVH "
+        f"built in {bvh_s:.2f} s, the atlas with mips packed in "
+        f"{atlas_s:.2f} s alone, the attribute rows with it and the "
+        f"tangents {attr_s:.2f} s alone, the upload (atlas, mips, tangents, "
+        f"tables) {upload_s:.2f} s; atlas {atlas_mb:.1f} MB, tri_attr "
+        f"{attr_mb:.1f} MB; device memory after building the Renderer: peak "
+        f"{peak_mb:.1f} MB ({before_mb:.1f} MB before); {flags}")
+    if not all(flags.values()):
+        raise AssertionError(f"the textured scene lacks a map: {flags}")
+    poses, launches = phase3(ren, poses_run, "tex-")
+    split = {"bilinear": stage_kernels(
+        TRACE_DIR / "trace_tex-mono_pose0.json", 2)}
+    log_stage("textures bilinear", split["bilinear"])
+    cap = captured_step(sd, ren.tables, dataclasses.replace(
+        cfg_e, fuse_step_chains="auto"), poses_run, chain=False,
+        label="tex-")
+    compare_captured(poses, cap["poses"])
+    filters = {}
+    for filt in ("nearest", "trilinear"):
+        ren_f = tr.Renderer(sd, dataclasses.replace(cfg_e,
+                                                    texture_filter=filt),
+                            tables=ren.tables)
+        filters[filt], _ = phase3(ren_f, (0,), f"tex-{filt}-")
+        split[filt] = stage_kernels(
+            TRACE_DIR / f"trace_tex-{filt}-mono_pose0.json", 2)
+        log_stage(f"textures {filt}", split[filt])
+        del ren_f
+    ren_w = tr.Renderer(sd, dataclasses.replace(cfg_e,
+                                                packet_kernel_mode="wave"),
+                        tables=ren.tables)
+    poses_w, launches_w = phase3(ren_w, (0,), "tex-")
+    del ren_w
+    tap = tap_ab(ren)
+    ren_d = tr.Renderer(sd, dataclasses.replace(cfg_e, denoise="on"),
+                        tables=ren.tables)
+    ren_d.step(camera_for_pose(0), 8)
+    img, image_ms = timed_once(ren_d.image)
+    if not (bool(torch.isfinite(img).all()) and float(img.max()) > 0):
+        raise AssertionError("the textured image() is not finite")
+    log(f"textures image() with the denoiser after 8 steps: {image_ms:.3f} "
+        "ms (the AOV pass samples the albedo and normal maps)")
+    del ren_d
+    queues = kernels_at_slice(ren, stream=False, label="textures")
+    path_checks("textures", launches, cap, launches_w, queues)
+    small = small or {}
+    mad = card_vs_cpu(Scene.from_triangles(**scene_files.textured_scene(
+        *terrain(n_quads=small.get("n_quads", 48), towers=4),
+        n_leaves=small.get("n_leaves", 2048),
+        n_blend=small.get("n_blend", 256), albedo_px=64, normal_px=64,
+        rough_px=32, leaf_px=32)), cfg_e, "textures")
+    return dict(triangles=sc.stats["triangles"], maps_s=maps_s, bvh_s=bvh_s,
+                atlas_s=atlas_s, attr_s=attr_s, upload_s=upload_s,
+                atlas_mb=atlas_mb,
+                tri_attr_mb=attr_mb, renderer_peak_mb=peak_mb,
+                memory_before_mb=before_mb, flags=flags, poses=poses,
+                poses_captured=cap["poses"], filters=filters,
+                poses_wave=poses_w, shade=split, tap=tap, image_ms=image_ms,
+                launches=dict(eager=launches, captured=cap["launches"],
+                              wave=launches_w),
+                queues=queues, card_vs_cpu=mad)
+
+
+# the fog path's medium (ROADMAP Queue 1 item 8; PERF.md section 4): the
+# slab spans the mesh's z range
+FOG = dict(fog="on", fog_sigma_s=0.02, fog_sigma_a=0.005, fog_g=0.6,
+           fog_falloff=0.05)
+
+
+def fog_path(scene_host, cfg: RenderConfig, poses_run=(0, 1, 2),
+             light_spec=None) -> dict:
+    """Height fog on the main scene (``scene_host``, its BVH reused) at
+    ``cfg``'s size, the slab over the mesh's z range (:data:`FOG`): the
+    Renderer's memory; phase 3 eager and captured (bit for bit the eager
+    step first) at ``poses_run`` and with the wave kernel at pose 0,
+    shade's split; the kernels on its queues and its step's
+    accumulation; then once eager at pose 0 with the lights "few"
+    configuration of :data:`LIGHT_CASES` (or ``light_spec``) and
+    ``mis="on"``, which runs fog's triangle- and delta-light lanes; a
+    32x32 render on the card against the CPU."""
+    corners = np.concatenate([scene_host.tri_vert,
+                              scene_host.tri_vert + scene_host.tri_e1,
+                              scene_host.tri_vert + scene_host.tri_e2])
+    fog = dict(FOG, fog_z_min=float(corners[:, 2].min()),
+               fog_z_max=float(corners[:, 2].max()))
+    cfg_f = dataclasses.replace(cfg, fuse_step_chains="off", **fog)
+    torch.cuda.reset_peak_memory_stats()
+    before_mb = torch.cuda.memory_allocated() / 1e6
+    t0 = time.perf_counter()
+    ren = tr.Renderer(scene_host, cfg_f)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6
+    sd = ren.scene
+    log(f"fog: {fog}; the scene uploaded in {upload_s:.2f} s; device "
+        f"memory after building the Renderer: peak {peak_mb:.1f} MB "
+        f"({before_mb:.1f} MB before)")
+    poses, launches = phase3(ren, poses_run, "fog-")
+    split = {"fog": stage_kernels(TRACE_DIR / "trace_fog-mono_pose0.json",
+                                  2)}
+    log_stage("fog", split["fog"])
+    cap = captured_step(sd, ren.tables, dataclasses.replace(
+        cfg_f, fuse_step_chains="auto"), poses_run, chain=False,
+        label="fog-")
+    compare_captured(poses, cap["poses"])
+    ren_w = tr.Renderer(sd, dataclasses.replace(cfg_f,
+                                                packet_kernel_mode="wave"),
+                        tables=ren.tables)
+    poses_w, launches_w = phase3(ren_w, (0,), "fog-")
+    del ren_w
+    queues = kernels_at_slice(ren, stream=False, label="fog")
+    path_checks("fog", launches, cap, launches_w, queues)
+    spec = light_spec or LIGHT_CASES["few"]
+    sc_l, over, _ = light_scene(scene_host, "few", SCENE_DIR, spec)
+    cfg_l = dataclasses.replace(cfg_f, **dict(over, mis="on"))
+    ren_l = tr.Renderer(sc_l, cfg_l)
+    if not (ren_l.scene.n_tri_lights and ren_l.scene.n_delta_lights):
+        raise AssertionError("the fog lights scene lacks its lights")
+    poses_l, launches_l = phase3(ren_l, (0,), "fog-lights-")
+    split["lights"] = stage_kernels(
+        TRACE_DIR / "trace_fog-lights-mono_pose0.json", 2)
+    log_stage("fog with the lights few, mis on", split["lights"])
+    del ren_l
+    v0, v1, v2 = terrain(n_quads=48, towers=4)
+    small = Scene.from_triangles(v0, v1, v2)
+    zs = np.concatenate([v0, v1, v2])[:, 2]
+    mad = card_vs_cpu(small, dataclasses.replace(
+        cfg_f, fog_z_min=float(zs.min()), fog_z_max=float(zs.max())), "fog")
+    return dict(fog=fog, upload_s=upload_s, renderer_peak_mb=peak_mb,
+                memory_before_mb=before_mb, poses=poses,
+                poses_captured=cap["poses"], poses_wave=poses_w,
+                poses_lights=poses_l, shade=split,
+                launches=dict(eager=launches, captured=cap["launches"],
+                              wave=launches_w, lights=launches_l),
+                queues=queues, card_vs_cpu=mad)
+
+
 def light_table_mb(sd) -> float:
     """Device MB of the light tables."""
     return sum(getattr(sd, k).numel() * 4 for k in (
@@ -1728,6 +2074,12 @@ def main() -> int:
     mark("sphere-free")
     lt = lights_path(scene_host, cfg)
     mark("lights")
+    fg = fog_path(scene_host, cfg)
+    mark("fog")
+    del scene_host
+    torch.cuda.empty_cache()
+    tx = textures_path(cfg)
+    mark("textures")
     log(f"seconds by path (build {build_s:.1f} s before): {secs}")
 
     queues = ("extend", "connect", "aov")
@@ -1753,7 +2105,11 @@ def main() -> int:
                     sphere_free={q: queue_entry(sf["queues"][q], gen)
                                  for q in queues},
                     lights={case: {q: queue_entry(lt[case]["queues"][q], gen)
-                                   for q in queues} for case in lt})
+                                   for q in queues} for case in lt},
+                    textures={q: queue_entry(tx["queues"][q], gen)
+                              for q in queues},
+                    fog={q: queue_entry(fg["queues"][q], gen)
+                         for q in queues})
 
     def queue_entry(q, gen):
         return dict(ms=q[gen]["ms"], plain_ms=q["plain_ms"],
@@ -1801,6 +2157,12 @@ def main() -> int:
         over the named runs (eager and captured phase 3, the wave run)."""
         return sum(lt[c]["launches"][r][key] for c in lt for r in runs)
 
+    def path_launches(path, key, *runs):
+        """A kernel's launches on the textures or the fog path over the
+        named runs (eager and captured phase 3, the wave run; the fog
+        path's run with the lights)."""
+        return sum(path["launches"][r][key] for r in runs)
+
     regs = build.registers()
     result = {"kernels": [
         {"name": "traverse", "route": "cuda",
@@ -1814,6 +2176,10 @@ def main() -> int:
          "flythrough_launches": fly["normals-on-auto"]["launches"][
              "traverse"],
          "lights_launches": lights_launches("traverse", "eager", "captured"),
+         "textures_launches": path_launches(tx, "traverse", "eager",
+                                            "captured"),
+         "fog_launches": path_launches(fg, "traverse", "eager", "captured",
+                                       "lights"),
          "registers": {k: v for k, v in regs.items()
                        if k.startswith("traverse_kernel<")},
          **entry("mono"), **normals_entry("mono", "normals-on-auto")},
@@ -1826,6 +2192,8 @@ def main() -> int:
              "traverse_wave"],
          "loaded_launches": ld["launches"]["wave"]["traverse_wave"],
          "lights_launches": lights_launches("traverse_wave", "wave"),
+         "textures_launches": path_launches(tx, "traverse_wave", "wave"),
+         "fog_launches": path_launches(fg, "traverse_wave", "wave"),
          "registers": {k: v for k, v in regs.items()
                        if k.startswith("traverse_wave_kernel<")},
          **entry("wave"), **normals_entry("wave", "normals-on-wave-auto")},
@@ -1841,11 +2209,17 @@ def main() -> int:
          "sphere_free_launches": sf["launches"]["accumulate"],
          "lights_launches": lights_launches("accumulate", "eager",
                                             "captured", "wave"),
+         "textures_launches": path_launches(tx, "accumulate", "eager",
+                                            "captured", "wave"),
+         "fog_launches": path_launches(fg, "accumulate", "eager", "captured",
+                                       "wave", "lights"),
          "max_abs_err": max(acc["max_abs_err"], at_step["max_abs_err"],
                             ld["queues"]["accumulate"]["max_abs_err"],
                             sf["queues"]["accumulate"]["max_abs_err"],
                             *(lt[c]["queues"]["accumulate"]["max_abs_err"]
-                              for c in lt)),
+                              for c in lt),
+                            tx["queues"]["accumulate"]["max_abs_err"],
+                            fg["queues"]["accumulate"]["max_abs_err"]),
          "ms": acc["ms"], "kernel_ms": acc["kernel_ms"],
          "plain_ms": acc["plain_ms"], "bound_ms": acc["bound_ms"],
          "bound_by": acc["bound_by"], "library_ms": acc["library_ms"],
@@ -1862,7 +2236,9 @@ def main() -> int:
          "loaded_step_queue": step_entry(ld["queues"]["accumulate"]),
          "sphere_free_step_queue": step_entry(sf["queues"]["accumulate"]),
          "lights_step_queue": {c: step_entry(lt[c]["queues"]["accumulate"])
-                               for c in lt}},
+                               for c in lt},
+         "textures_step_queue": step_entry(tx["queues"]["accumulate"]),
+         "fog_step_queue": step_entry(fg["queues"]["accumulate"])},
         {"name": "stream", "route": "cuda",
          "source": "tyrant_tpu_torch/csrc/stream.cu",
          "replaces": "tyrant_tpu/ops/pallas/stream_kernel.py:105",
@@ -1875,6 +2251,7 @@ def main() -> int:
                     "card_vs_cpu_denoised_wave": mad_dn, "build_s": build_s,
                     "renderer_peak_mb": peak_mb, "loaded": ld,
                     "sphere_free": sf, "lights": lt, "captured": cap,
+                    "textures": tx, "fog": fg,
                     "preset_normals": nrm, "flythrough": fly,
                     "registers": regs}))
     log(gpu)

@@ -5,7 +5,8 @@ main path's queues, the denoised display path eager and captured, the
 stream kernel's overflow, the equivalence gate, the pose harness, the
 loaded scene, the sphere-free scene, the captured step against the eager
 one, the normals output of both traversal kernels, the interactive
-fly-through and the lights path) at small sizes, so the
+fly-through, the lights path, the textures path and the fog path) at
+small sizes, so the
 card's checks live in one place.  The kernels have no CPU mode, so
 these tests skip without a CUDA device.  This file imports no JAX, so it
 also runs where JAX is not installed:
@@ -498,3 +499,72 @@ def test_captured_lights_step_is_bit_equal_to_eager(cuda, case, tmp_path):
     ren = tr.Renderer(sd, cfg)
     ren.step(chip_smoke.camera_for_pose(0), 2)
     assert ren.state.bsdf_pdf.shape == ((8192,) if case == "many" else (1,))
+
+
+SMALL_TEX = dict(n_tris=20_000, n_leaves=2048, n_blend=256, poses_run=(0,),
+                 texture_px=dict(albedo_px=128, normal_px=128, rough_px=64,
+                                 leaf_px=64),
+                 small=dict(n_quads=24, n_leaves=512, n_blend=64))
+
+
+def test_textures_path_at_small_size(cuda):
+    """chip_smoke's textures path at a small size: the textured scene's
+    step captured bit for bit the eager one, phase 3 under every filter
+    and the wave kernel, both traversal kernels against the plain walk on
+    its extend, shadow and AOV queues, the accumulation on its step's
+    queue, the two row gathers of the tap A/B bit for bit, image() with
+    the denoiser, the card against the CPU."""
+    cfg = small_config(width=96, height=64, num_rays=8192)
+    tx = chip_smoke.textures_path(cfg, **SMALL_TEX)
+    for q in ("extend", "connect", "aov"):
+        for gen in ("mono", "wave"):
+            assert tx["queues"][q][gen]["mismatches"] == 0
+    assert tx["queues"]["accumulate"]["max_abs_err"] == 0.0
+    assert tx["launches"]["eager"]["traverse"] == 2 * 14
+    assert tx["launches"]["captured"]["traverse"] == 2 * 14
+    assert tx["launches"]["wave"]["traverse_wave"] == 2 * 14
+    assert tx["tap"]["taps_a_shade"] == 12  # 4 bilinear taps, 3 maps
+    assert tx["card_vs_cpu"] < 0.03
+
+
+def test_fog_path_at_small_size(cuda):
+    """chip_smoke's fog path at a small size: the fog step captured bit
+    for bit the eager one, the kernels on its queues (the shadow queue
+    with fog's transmittance), the lights "few" with MIS under fog, the
+    card against the CPU."""
+    cfg = small_config(width=96, height=64, num_rays=8192)
+    host = Scene.from_triangles(*terrain(n_quads=32, towers=3))
+    fg = chip_smoke.fog_path(host, cfg, poses_run=(0,),
+                             light_spec=SMALL_LIGHTS["few"])
+    for q in ("extend", "connect", "aov"):
+        for gen in ("mono", "wave"):
+            assert fg["queues"][q][gen]["mismatches"] == 0
+    assert fg["queues"]["accumulate"]["max_abs_err"] == 0.0
+    assert fg["launches"]["captured"]["traverse"] == 2 * 14
+    assert fg["launches"]["lights"]["accumulate"] == 14
+    assert fg["card_vs_cpu"] < 0.03
+
+
+@pytest.mark.parametrize("over", [dict(texture_filter="nearest"),
+                                  dict(texture_filter="trilinear"),
+                                  dict(chip_smoke.FOG, fog_z_min=-100.0,
+                                       fog_z_max=60.0, mis="on")])
+def test_captured_textured_and_fog_steps_bit_equal(cuda, over):
+    """The textured step under "nearest" and "trilinear" (the mip
+    footprint's select chains in the graph) and the fog step with MIS,
+    captured, bit for bit the eager step after 6 steps with a pose and a
+    sun change between."""
+    import dataclasses
+
+    from tyrant_tpu_torch.scene import files
+    kw = files.textured_scene(*terrain(n_quads=32, towers=3), n_leaves=1024,
+                              n_blend=128, albedo_px=64, normal_px=64,
+                              rough_px=32, leaf_px=32)
+    sd = Scene.from_triangles(**kw).to_device(cuda)
+    cfg = small_config(96, 64, num_rays=8192, **over)
+    cap = chip_smoke.captured_step(sd, ktrav.PacketTables(sd.bvh),
+                                   dataclasses.replace(
+                                       cfg, fuse_step_chains="auto"),
+                                   poses_run=(0,), chain=False)
+    assert cap["equal_after_6"]
+    assert cap["launches"]["traverse"] == 2 * 14

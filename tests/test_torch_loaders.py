@@ -7,8 +7,9 @@ bit for bit, the same exception types on malformed input, the same host
 sphere_table, the BVH tables and the fat rows) bit for bit with the JAX
 ``SceneData``'s, the light tables and counts with them (emissive
 triangles, delta lights, an environment map, several emissive spheres,
-the power table and its alias rows).  Features the port does not shade
-(textures and maps) are refused by name when the scene is uploaded."""
+the power table and its alias rows), the texel atlas and its static meta
+and the texture gates with them (albedo, cutout, blend, normal, roughness
+and metal maps from OBJ/MTL and glTF files)."""
 
 import dataclasses
 import json
@@ -509,10 +510,17 @@ SCENES = ["obj_tri", "obj_ggx", "obj_vn", "asset_obj", "ply_binary",
 _BVH = ("node_packed", "miss_flat", "tri_packed", "leaf_packed")
 _TABLES = ("tri_shade", "tri_attr", "sphere_table", "sphere_center",
            "sphere_radius", "sphere_emission", "tri_lights", "delta_lights",
-           "light_powers", "light_alias", "env_data", "env_alias")
+           "light_powers", "light_alias", "env_data", "env_alias",
+           "tex_data")
 _FLAGS = ("smooth_normals", "has_ggx", "has_rrefr", "has_var_ior",
           "light_indices", "n_tri_lights", "n_delta_lights", "env_meta",
-          "has_envmap")
+          "has_envmap", "tri_default_mat", "tex_meta", "has_albedo_tex",
+          "has_textures", "has_normal_maps", "has_rough_maps",
+          "has_alpha_tex", "has_blend", "has_metal_maps")
+# the texture gates by the names of the features they shade
+GATES = {"textures": "has_albedo_tex", "alpha maps": "has_alpha_tex",
+         "blend": "has_blend", "normal maps": "has_normal_maps",
+         "roughness maps": "has_rough_maps", "metal maps": "has_metal_maps"}
 
 
 def _bits(a):
@@ -568,17 +576,19 @@ def test_missing_file_gives_a_scene_without_primitives(tmp_path, capsys):
     ("glb_full", ["textures"]),
     ("glb_emissive_texture", ["textures"])])
 def test_unported_features_refused_by_name(case, features, tmp_path):
-    """The scene loads (equal to the JAX package's), and its upload raises
-    naming exactly the features the JAX package would shade and the port
-    does not."""
+    """Once refused on upload, now shaded (the name is kept from then):
+    the scene loads equal to the JAX package's and uploads with tables,
+    atlas and meta bit for bit the JAX package's, exactly the named
+    features' gates on."""
     path = MAKERS[case](tmp_path)
     js = JScene.load(path, builder="numpy") if not path.endswith(".json") \
         else jdesc.load_description(path, builder="numpy").scene
     ts = Scene.load(path, builder="numpy")
     same(_as_host(js), _as_host(ts), case)
-    assert ts.unported() == features
-    with pytest.raises(ValueError, match="not ported: " + ", ".join(features)):
-        ts.to_device("cpu")
+    td = ts.to_device("cpu")
+    check_tables(js.to_device(), td)
+    assert [k for k, g in GATES.items() if getattr(td, g)] == features
+    assert td.tex_data.shape[0] > 1 and len(td.tex_meta[0]) == 6
 
 
 def test_envmap_and_several_lights_refused(tmp_path):
@@ -593,7 +603,6 @@ def test_envmap_and_several_lights_refused(tmp_path):
         "default_spheres": False}
     path = _write(tmp_path, "l.json", lights)
     sc = Scene.load(path)
-    assert sc.unported() == []
     td = sc.to_device("cpu")
     assert td.light_indices == (0, 1) and td.n_tri_lights == 0
     check_tables(jdesc.load_description(path, builder="numpy")

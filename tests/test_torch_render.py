@@ -127,7 +127,18 @@ def test_terrain_matches_jax_renderer():
     ("ortho_height", 20.0), ("radiance_clamp", 4.0), ("seed", 3),
     ("adaptive_interval", 8), ("fisheye_fov_degrees", 120.0)])
 def test_unported_config_fields_raise(field, value):
+    """Unported fields raise, naming themselves; the fog fields, once
+    among them, now build a fog Renderer that steps (the name is kept)."""
     cfg = dataclasses.replace(small_config(16, 16, 1024), **{field: value})
+    if field in ("fog", "fog_falloff"):
+        cfg = dataclasses.replace(cfg, fog="on", fog_z_min=-20.0,
+                                  fog_z_max=60.0)
+        r = tr.Renderer(Scene.load(None), cfg, device="cpu")
+        assert tr._fog_on(r.cfg) and getattr(r.cfg, field) == value
+        r.step(_pose(Camera), 2)
+        assert torch.isfinite(r.state.accum).all()
+        assert float(r.state.accum[:, 3].sum()) > 0
+        return
     with pytest.raises(ValueError, match=field):
         tr.Renderer(Scene.load(None), cfg, device="cpu")
 

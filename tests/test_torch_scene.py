@@ -167,17 +167,27 @@ _TEX = dict(textures=[np.ones((2, 2, 3), np.float32)],
     dict(_TEX, tri_rtex=np.zeros(1, np.int32)),
     dict(textures=[np.full((2, 2, 4), 0.5, np.float32)],
          tri_uv=np.zeros((1, 3, 2)), tri_tex=np.zeros(1, np.int32),
-         tri_refl=np.array([4]), delta_lights=DeltaLights.from_specs(
-             [{"type": "point", "position": [0, 0, 9]}]))])
+         tri_refl=np.array([4]), delta_lights=[
+             {"type": "point", "position": [0, 0, 9]}])])
 def test_unported_scene_features_raise(kw):
-    """A scene builds with every host record; the features the port does
-    not shade (textures and maps; the lights are shaded) are refused by
-    name when it is uploaded."""
+    """Once refused on upload, now shaded (the name is kept from then): a
+    scene with each texture record (an albedo map, a normal map, a
+    roughness map, and a half-transparent emissive texture beside a delta
+    light) uploads with every table, the atlas, its meta and the gates
+    bit for bit the JAX package's."""
+    from tyrant_tpu.scene.scene import DeltaLights as JDeltaLights
+
+    from .test_torch_loaders import check_tables
     v = np.zeros((1, 3), np.float32)
-    sc = Scene.from_triangles(v, v + [1, 0, 0], v + [0, 1, 0],
-                              builder="numpy", **kw)
-    with pytest.raises(ValueError, match="not ported"):
-        sc.to_device("cpu")
+    tri = (v, v + [1, 0, 0], v + [0, 1, 0])
+    specs = kw.get("delta_lights")
+    tkw = dict(kw, delta_lights=specs and DeltaLights.from_specs(specs))
+    jkw = dict(kw, delta_lights=specs and JDeltaLights.from_specs(specs))
+    td = Scene.from_triangles(*tri, builder="numpy", **tkw).to_device("cpu")
+    check_tables(JScene.from_triangles(*tri, builder="numpy", **jkw)
+                 .to_device(), td)
+    assert td.tex_data.shape == (1 + 4 + 1, 4) and td.tex_meta  # 2x2, 1x1
+    assert not td.tri_default_mat
 
 
 def test_unported_sphere_sets_raise():

@@ -20,12 +20,15 @@ from .scene.scene import SceneData, scene_data
 SCENE_LEAVES = ("node_packed", "miss_flat", "tri_packed", "leaf_packed",
                 "tri_shade", "sphere_table", "tri_attr", "sphere_center",
                 "tri_lights", "delta_lights", "light_powers", "light_alias",
-                "env_data", "env_alias")
+                "env_data", "env_alias", "tex_data")
 # the SceneData flags the render step gates its terms on
 SCENE_FLAGS = ("smooth_normals", "has_ggx", "has_rrefr", "has_var_ior",
-               "tri_default_mat")
-# the SceneData counts and sizes the render step reads on the host
-SCENE_AUX = ("n_tri_lights", "n_delta_lights", "env_meta")
+               "tri_default_mat", "has_albedo_tex", "has_normal_maps",
+               "has_rough_maps", "has_alpha_tex", "has_blend",
+               "has_metal_maps")
+# the SceneData counts and sizes the render step reads on the host (the
+# texture meta is a static tuple of Python ints)
+SCENE_AUX = ("n_tri_lights", "n_delta_lights", "env_meta", "tex_meta")
 STATE_FIELDS = ("accum", "origin", "direction", "direct", "pending", "pixel",
                 "bounces", "last_specular", "n_carried", "start_position",
                 "frame", "shadow_rays", "bsdf_pdf")
@@ -40,7 +43,7 @@ def scene_from_numpy(leaves: Mapping[str, np.ndarray], rows: np.ndarray,
     sphere count, 0 for a scene without spheres); ``rows``:
     PacketTables.rows; ``flags``: the SceneData flags named in
     SCENE_FLAGS (absent ones are off); ``aux``: the counts named in
-    SCENE_AUX (absent ones are 0, or () for env_meta)."""
+    SCENE_AUX (absent ones are 0, or () for env_meta and tex_meta)."""
     missing = [k for k in SCENE_LEAVES if k not in leaves]
     if missing:
         raise ValueError(f"scene leaves missing: {missing}")
@@ -62,6 +65,7 @@ def scene_from_numpy(leaves: Mapping[str, np.ndarray], rows: np.ndarray,
                     n_tri_lights=int(aux.get("n_tri_lights", 0)),
                     n_delta_lights=int(aux.get("n_delta_lights", 0)),
                     env_meta=tuple(aux.get("env_meta", ())),
+                    tex_meta=tuple(aux.get("tex_meta", ())),
                     **{k: bool(v) for k, v in flags.items()})
     return sd, PacketTables(bvh, rows=np.asarray(rows))
 

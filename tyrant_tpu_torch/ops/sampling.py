@@ -1,5 +1,5 @@
 """Sampling primitives, the port of ``tyrant_tpu/ops/sampling.py`` for the
-functions the main path uses.  Vectors are ``[..., 3]`` float32 tensors."""
+functions the render step uses.  Vectors are ``[..., 3]`` float32 tensors."""
 
 from __future__ import annotations
 
@@ -79,6 +79,34 @@ def cone_sample(direction, extent, seed):
     return seed, (torch.cos(phi) * oneminus)[..., None] * o1 \
         + (torch.sin(phi) * oneminus)[..., None] * o2 \
         + z[..., None] * d
+
+
+def hg_phase(cos_theta, g: float):
+    """Henyey-Greenstein phase function, equal to its solid-angle pdf
+    (normalised over the sphere); ``g`` is the config's float (the fog
+    medium's anisotropy).  The atmosphere keeps its own HG (sky.py)."""
+    if abs(g) < 1e-4:
+        return torch.full_like(cos_theta, 1.0 / (4.0 * PI))
+    denom = torch.clamp(1.0 + g * g - 2.0 * g * cos_theta, min=1e-12)
+    return (1.0 - g * g) / (4.0 * PI * denom * torch.sqrt(denom))
+
+
+def hg_sample_from_uniforms(direction, g: float, u1, u2):
+    """A direction from the HG phase function around ``direction``: the
+    exact inverse CDF in cos(theta), so its pdf is :func:`hg_phase`."""
+    d = normalize(direction)
+    if abs(g) < 1e-4:
+        cos_t = 1.0 - 2.0 * u1
+    else:
+        sq = (1.0 - g * g) / (1.0 - g + 2.0 * g * u1)
+        cos_t = (1.0 + g * g - sq * sq) / (2.0 * g)
+    cos_t = torch.clamp(cos_t, -1.0, 1.0)
+    sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+    phi = 2.0 * PI * u2
+    u, v = orthonormal_basis(d)
+    return u * (torch.cos(phi) * sin_t)[..., None] \
+        + v * (torch.sin(phi) * sin_t)[..., None] \
+        + d * cos_t[..., None]
 
 
 def sphere_surface_sample(center, radius, seed):

@@ -2,11 +2,15 @@
 main path (the reference estimator at the default static gates), the
 loaded-scene materials (GGX conductors, rough glass, a per-triangle glass
 IOR, spectral dispersion and smooth vertex normals, in scenes with or
-without spheres) and the lights: several emissive spheres, emissive
+without spheres), the lights (several emissive spheres, emissive
 triangles, point/spot/directional delta lights, uniform or power light
-picking (``light_sampling``), an equirectangular environment map
-(``texture_filter`` nearest or bilinear) and multiple importance sampling
-(``mis``) with environment next-event estimation.
+picking (``light_sampling``), an equirectangular environment map and
+multiple importance sampling (``mis``) with environment next-event
+estimation), textured surfaces (albedo with alpha cutout and stochastic
+blend, tangent-space normal maps, roughness and metalness maps, the three
+wrap modes, ``texture_filter`` nearest, bilinear or trilinear over the
+mip pyramid) and height fog (``fog``: a slab of exponential-height
+density with Henyey-Greenstein scattering).
 
 One :func:`render_step` tops up the fixed-size ray queue with camera rays
 (raygen), finds every ray's closest hit (extend), shades it with a BSDF
@@ -27,13 +31,16 @@ position, unit axis, intensity, cos_inner, cos_outer; the power pick's
 rows [keep, alias, 1/pdf(self), 1/pdf(alias)] (beyond); ``env_data``
 [H*W+1, 4] radiance and, in lane 3, the texel's solid-angle pdf, and
 ``env_alias`` [H*W, 12] for the environment draws; ``tri_shade`` lane 7
-holds a LIGHT triangle's area, which the MIS emitter-hit pdf reads.
+holds a LIGHT triangle's area, which the MIS emitter-hit pdf reads.  The
+texture taps read ``tex_data`` rows, one row gather a tap, addressed from
+the static ``tex_meta`` tuple by a Python select chain.
 
-Every material, light and scene term is gated in Python on the scene's
-flags and counts (``SceneData.has_ggx``, ``has_rrefr``, ``has_var_ior``,
-``smooth_normals``, no spheres, ``light_indices``, ``n_tri_lights``,
-``n_delta_lights``, ``has_envmap``) and on ``cfg.dispersion`` and
-``cfg.mis``, as the JAX package gates them at trace time, so a scene
+Every material, light, texture and scene term is gated in Python on the
+scene's flags and counts (``SceneData.has_ggx``, ``has_rrefr``,
+``has_var_ior``, ``smooth_normals``, the texture gates, no spheres,
+``light_indices``, ``n_tri_lights``, ``n_delta_lights``, ``has_envmap``)
+and on ``cfg.dispersion``, ``cfg.mis`` and ``cfg.fog``, as the JAX
+package gates them at trace time, so a scene
 without them issues the same device operations as the main path.  Every
 uniform is drawn in the JAX package's order, from the same streams.
 
@@ -61,7 +68,8 @@ from .ops.kernels.traverse import (PacketTables, any_hit_packets,
                                    closest_hit_packets)
 from .ops.sampling import (concentric_sample_disk, cone_sample, cross,
                            cosine_hemisphere_sample, dot, ggx_d_vec, ggx_g1,
-                           ggx_vndf_sample_from_uniforms, normalize,
+                           ggx_vndf_sample_from_uniforms, hg_phase,
+                           hg_sample_from_uniforms, normalize,
                            phong_lobe_sample, reflect,
                            sphere_surface_from_uniforms,
                            sphere_surface_sample,
@@ -74,17 +82,22 @@ from .scene.scene import (DIFF, GGX, LIGHT, PHONG, REFR, RREFR, SPEC, Scene,
 PHONG_EXPONENT = 40.0
 _KEY_GRID = 8  # survivor-ordering spatial grid resolution
 
-# RenderConfig fields the port implements (``texture_filter`` reaches only
-# the environment map while textures are refused on upload); the TPU-only
-# selectors in the second group are accepted and have no effect (CUDA
-# tensors always take the kernels, CPU tensors the plain versions)
+# shade-only pseudo-materials, never stored in a scene table: a fog medium
+# event and an alpha-cutout pass-through (the JAX package's ids)
+FOG = 6
+PASS = 7
+
+# RenderConfig fields the port implements; the TPU-only selectors in the
+# second group are accepted and have no effect (CUDA tensors always take
+# the kernels, CPU tensors the plain versions)
 _PORTED_FIELDS = {"width", "height", "num_rays", "max_bounces", "epsilon",
                   "sky", "bvh", "focal_distance_scale", "raygen_order",
                   "tonemap", "exposure", "packet_kernel_mode", "denoise",
                   "denoise_iterations", "bloom_strength", "bloom_threshold",
                   "bloom_radius", "dispersion", "use_kernel_normals",
                   "fuse_step_chains", "mis", "light_sampling",
-                  "texture_filter"}
+                  "texture_filter", "fog", "fog_sigma_s", "fog_sigma_a",
+                  "fog_g", "fog_z_min", "fog_z_max", "fog_falloff"}
 _IGNORED_SELECTORS = {"use_packet_kernel", "use_accum_kernel",
                       "adaptive_connect", "adaptive_connect_frac"}
 
@@ -316,6 +329,223 @@ def _env_pdf_nearest(scene: SceneData, d):
 
 
 # --------------------------------------------------------------------------
+# textures
+# --------------------------------------------------------------------------
+
+def _tap_rows(table, idx):
+    """Rows ``idx`` [N] (int32) of ``table``: one row gather.  On the
+    H100 ``index_select`` and ``table[idx]`` take the same time, on int32
+    or int64 indices (chip_smoke.tap_ab)."""
+    return torch.index_select(table, 0, idx)
+
+
+def _meta_select(texid, meta, lanes, level=None):
+    """Per-ray values [N] of ``tex_meta`` lanes (or, with ``level`` [N],
+    of a mip level's (offset, height, width) lanes) as one select chain
+    over the static tuple: no gather and no host read of a device value.
+    Returns one tensor a lane."""
+    def entries():
+        for k, m in enumerate(meta):
+            if level is None:
+                yield k, None, m
+            else:
+                for j, lm in enumerate(m[5]):
+                    yield k, j, lm
+    chain = list(entries())
+    outs = [torch.full_like(texid, int(chain[0][2][lane])) for lane in lanes]
+    for k, j, m in chain[1:]:
+        sel = texid == k
+        if j is not None:
+            sel = sel & (level == j)
+        outs = [torch.where(sel, int(m[lane]), o) for lane, o in zip(lanes,
+                                                                     outs)]
+    return outs
+
+
+def _sample_texture(scene: SceneData, texid, u, v, filter_mode: str,
+                    channels: int = 3, uv_fp=None):
+    """Texels of the atlas at (u, v) [N] (v = 0 at the image's bottom) for
+    texture ids ``texid`` [N] (-1: untextured, which taps row 0): one row
+    gather of ``tex_data`` a tap, 1 under "nearest", 4 under "bilinear",
+    8 under "trilinear" with the ray-cone footprint ``uv_fp`` = (u, v)
+    footprints (two mip levels blended by the lod's fraction).  The wrap
+    modes (0 repeat, 1 clamp to edge, 2 mirrored repeat) come from the
+    static meta; a non-repeat border clamps the bilinear neighbour.
+    ``channels=4`` also returns the cutout alpha of the same rows."""
+    meta = scene.tex_meta
+    # wrap modes: static over the meta, so a repeat-only scene issues no
+    # wrap op
+    any_wrap = any(len(m) > 3 and (m[3] or m[4]) for m in meta)
+    if any_wrap:
+        off, th, tw, ws, wt = _meta_select(texid, meta, range(5))
+
+        def wrap_coord(c, mode):
+            rep = c - torch.floor(c)
+            t2 = c - 2.0 * torch.floor(c * 0.5)
+            mir = torch.where(t2 > 1.0, 2.0 - t2, t2)
+            cl = torch.clamp(c, 0.0, 1.0)
+            return torch.where(mode == 1, cl, torch.where(mode == 2, mir, rep))
+
+        u = wrap_coord(u, ws)
+        v = wrap_coord(v, wt)
+    else:
+        off, th, tw = _meta_select(texid, meta, range(3))
+        u = u - torch.floor(u)
+        v = v - torch.floor(v)
+    n_rows = scene.tex_data.shape[0]
+    textured = texid >= 0
+
+    def tap(o, hh, ww, xi, yi):
+        idx = o + (hh - 1 - yi) * ww + xi
+        idx = torch.clamp(torch.where(textured, idx, 0), 0, n_rows - 1)
+        return _tap_rows(scene.tex_data, idx)[:, :channels]
+
+    if filter_mode == "nearest":
+        x = torch.minimum((u * tw).to(torch.int32), tw - 1)
+        y = torch.minimum((v * th).to(torch.int32), th - 1)
+        return tap(off, th, tw, x, y)
+
+    def bilin(off_l, th_l, tw_l):
+        """Four half-texel centred taps of one level ``off_l`` of
+        ``th_l`` x ``tw_l`` texels."""
+        fx = u * tw_l - 0.5
+        fy = v * th_l - 0.5
+        x0f = torch.floor(fx)
+        y0f = torch.floor(fy)
+        ax = _col(fx - x0f)
+        ay = _col(fy - y0f)
+        x0 = torch.remainder(x0f.to(torch.int32), tw_l)
+        y0 = torch.remainder(y0f.to(torch.int32), th_l)
+        x1 = torch.remainder(x0 + 1, tw_l)
+        y1 = torch.remainder(y0 + 1, th_l)
+        if any_wrap:
+            # a non-repeat border clamps the neighbour texel instead of
+            # wrapping to the opposite edge
+            x0c = torch.minimum(torch.clamp(x0f.to(torch.int32), min=0),
+                                tw_l - 1)
+            y0c = torch.minimum(torch.clamp(y0f.to(torch.int32), min=0),
+                                th_l - 1)
+            x0 = torch.where(ws == 0, x0, x0c)
+            y0 = torch.where(wt == 0, y0, y0c)
+            x1 = torch.where(ws == 0, x1, torch.minimum(x0c + 1, tw_l - 1))
+            y1 = torch.where(wt == 0, y1, torch.minimum(y0c + 1, th_l - 1))
+        return (tap(off_l, th_l, tw_l, x0, y0) * (1 - ax) * (1 - ay)
+                + tap(off_l, th_l, tw_l, x1, y0) * ax * (1 - ay)
+                + tap(off_l, th_l, tw_l, x0, y1) * (1 - ax) * ay
+                + tap(off_l, th_l, tw_l, x1, y1) * ax * ay)
+
+    if filter_mode == "trilinear" and uv_fp is not None \
+            and len(meta) > 0 and len(meta[0]) > 5:
+        # the lod from the footprint in this texture's own texels, two
+        # bilinear levels blended by its fraction; the levels' offsets
+        # and sizes are static (the pack's mip chains)
+        fpu, fpv = uv_fp
+        fp_texels = torch.maximum(fpu * tw.to(torch.float32),
+                                  fpv * th.to(torch.float32))
+        nlev = torch.full_like(texid, len(meta[0][5]))
+        for k in range(1, len(meta)):
+            nlev = torch.where(texid == k, len(meta[k][5]), nlev)
+        lod = torch.log2(torch.clamp(fp_texels, min=1.0))
+        lod = torch.minimum(torch.clamp(lod, min=0.0),
+                            (nlev - 1).to(torch.float32))
+        l0 = lod.to(torch.int32)
+        frac = _col(lod - l0.to(torch.float32))
+
+        c0 = bilin(*_meta_select(texid, meta, range(3), l0))
+        c1 = bilin(*_meta_select(texid, meta, range(3),
+                                 torch.minimum(l0 + 1, nlev - 1)))
+        return c0 * (1 - frac) + c1 * frac
+
+    return bilin(off, th, tw)
+
+
+# --------------------------------------------------------------------------
+# fog: a slab z in [fog_z_min, fog_z_max] of density sigma exp(-falloff z)
+# --------------------------------------------------------------------------
+
+def _fog_overlap(origin, direction, t_limit, z_min: float, z_max: float):
+    """(t_enter, length) of the rays' overlap with the fog slab, clipped
+    to [0, t_limit] (t_limit [N]); length 0 for a ray that never crosses
+    it (the slab is convex: at most one crossing)."""
+    oz, dz = origin[:, 2], direction[:, 2]
+    tiny = 1e-12
+    parallel = torch.abs(dz) < tiny
+    safe_dz = torch.where(parallel, tiny, dz)
+    t0 = (z_min - oz) / safe_dz
+    t1 = (z_max - oz) / safe_dz
+    ta = torch.minimum(t0, t1)
+    tb = torch.maximum(t0, t1)
+    inside = (oz >= z_min) & (oz <= z_max)
+    zero = torch.zeros_like(oz)
+    far = torch.full_like(oz, VERY_FAR)
+    ta = torch.where(parallel, torch.where(inside, zero, far), ta)
+    tb = torch.where(parallel, torch.where(inside, far, zero), tb)
+    ta = torch.clamp(ta, min=0.0)
+    tb = torch.minimum(tb, t_limit)
+    return ta, torch.clamp(tb - ta, min=0.0)
+
+
+def _fog_density_coeffs(origin, direction, t_start, falloff: float):
+    """(rho0, k) of the density along a segment from ``t_start``:
+    density(s) = rho0 exp(-k s) with rho0 = exp(-falloff z_start) (its
+    exponent clamped to +-60, which RenderConfig keeps exact) and
+    k = falloff dz."""
+    z_start = origin[:, 2] + direction[:, 2] * t_start
+    rho0 = torch.exp(torch.clamp(-falloff * z_start, -60.0, 60.0))
+    return rho0, falloff * direction[:, 2]
+
+
+def _fog_optical_depth(sigma_t: float, rho0, k, s):
+    """Optical depth over a segment of length ``s``: sigma_t rho0
+    (1 - exp(-k s)) / k, and sigma_t rho0 s as k -> 0."""
+    tiny = torch.abs(k) < 1e-12
+    k_safe = torch.where(tiny, 1.0, k)
+    ratio = torch.where(tiny, s, -torch.expm1(-k_safe * s) / k_safe)
+    return sigma_t * rho0 * ratio
+
+
+def _fog_free_flight(u, sigma_t: float, rho0, k):
+    """The collision distance whose optical depth is -log(1 - u) (the
+    inverse free-flight CDF of the height fog); VERY_FAR where the ray
+    climbs out of the fog before that depth accrues."""
+    e = -torch.log1p(-torch.clamp(u, max=1.0 - 1e-7))
+    tiny = torch.abs(k) < 1e-12
+    k_safe = torch.where(tiny, 1.0, k)
+    g = e * k_safe / (sigma_t * rho0)
+    s_het = -torch.log1p(-torch.clamp(g, max=1.0 - 1e-12)) / k_safe
+    s = torch.where(tiny, e / (sigma_t * rho0), s_het)
+    return torch.where(~tiny & (g >= 1.0), VERY_FAR, s)
+
+
+def _fog_on(cfg: RenderConfig) -> bool:
+    return cfg.fog == "on" and (cfg.fog_sigma_s + cfg.fog_sigma_a) > 0.0
+
+
+def _shade_fog_sample(cfg: RenderConfig, rays, t, frame, slot):
+    """One free-flight draw a segment against its slab overlap: a
+    collision before the surface makes the segment's event a medium event
+    at t = t_enter + s.  Conditioning on no collision cancels the
+    transmittance, so the surface and sky branches take no weight; the
+    scattering albedo is applied through the throughput's colour
+    multiply.  Returns (t, is_fog)."""
+    d = rays["direction"]
+    f_sigma_t = cfg.fog_sigma_s + cfg.fog_sigma_a
+    f_ta, f_len = _fog_overlap(rays["origin"], d, t, cfg.fog_z_min,
+                               cfg.fog_z_max)
+    # side stream: the fog-off streams stay untouched
+    _, u_f = rng.random_float(
+        rng.seed_from(frame, rays["pixel"], slot, 0, 0xF06))
+    if cfg.fog_falloff:
+        f_rho0, f_k = _fog_density_coeffs(rays["origin"], d, f_ta,
+                                          cfg.fog_falloff)
+        f_s = _fog_free_flight(u_f, f_sigma_t, f_rho0, f_k)
+    else:
+        f_s = -torch.log1p(-torch.clamp(u_f, max=1.0 - 1e-7)) / f_sigma_t
+    is_fog = f_s < f_len
+    return torch.where(is_fog, f_ta + f_s, t), is_fog
+
+
+# --------------------------------------------------------------------------
 # shade
 # --------------------------------------------------------------------------
 
@@ -342,26 +572,66 @@ def _n_lights(scene: SceneData) -> tuple[bool, int]:
             or scene.n_delta_lights > 0), total
 
 
-def _smooth_normal(scene: SceneData, tid, p, normal_tri):
-    """The corner normals interpolated at the (pre-offset) hit point ``p``
-    from one tri_attr row: barycentrics from the dual basis with two dots,
-    then renormalised; triangles without usable corner normals (flag lane
-    25 off) keep ``normal_tri``."""
+def _attr_fetch(scene: SceneData, tid, p):
+    """The tri_attr row of each hit triangle (one gather, shared by smooth
+    normals and every map) and the barycentrics (bu, bv) of the
+    (pre-offset) hit point ``p`` from its dual basis, with two dots."""
     arow = scene.tri_attr[tid]  # [N, 32]
     p_rel = p - arow[:, 0:3]
-    bu = dot(p_rel, arow[:, 3:6])
-    bv = dot(p_rel, arow[:, 6:9])
+    return arow, dot(p_rel, arow[:, 3:6]), dot(p_rel, arow[:, 6:9])
+
+
+def _smooth_normal(arow, bu, bv, normal_tri):
+    """The corner normals interpolated at (bu, bv) and renormalised;
+    triangles without usable corner normals (flag lane 25 off) keep
+    ``normal_tri``."""
     ns = arow[:, 16:19] + _col(bu) * arow[:, 19:22] + _col(bv) * arow[:, 22:25]
     nlen = torch.sqrt(torch.clamp(dot(ns, ns), min=1e-20))
     return torch.where(_col(arow[:, 25] > 0.5), ns / _col(nlen), normal_tri)
 
 
-def _shade_surface_fetch(scene: SceneData, o, ident, is_tri, hit,
+def _attr_uv(arow, bu, bv):
+    """The texture coordinates [N, 2] interpolated at (bu, bv)."""
+    return arow[:, 9:11] + _col(bu) * arow[:, 11:13] \
+        + _col(bv) * arow[:, 13:15]
+
+
+def _normal_mapped(scene: SceneData, arow, uv_t, normal_tri,
+                   filter_mode: str, uv_fp=None):
+    """The tangent-space normal map (attr lane 26) applied to the current
+    shading normal: the uv tangent (27:30) orthonormalised against it,
+    B = cross(N, T) times the handedness (30); rays without a map or with
+    a degenerate tangent keep ``normal_tri``."""
+    ntexid = arow[:, 26].to(torch.int32)
+    nm = _sample_texture(scene, ntexid, uv_t[:, 0], uv_t[:, 1], filter_mode,
+                         uv_fp=uv_fp)
+    n_ts = nm * 2.0 - 1.0
+    tang = arow[:, 27:30]
+    t_o = tang - normal_tri * _col(dot(normal_tri, tang))
+    t_len = torch.sqrt(torch.clamp(dot(t_o, t_o), min=1e-20))
+    t_o = t_o / _col(t_len)
+    b_o = cross(normal_tri, t_o) * arow[:, 30:31]
+    n_p = t_o * n_ts[:, 0:1] + b_o * n_ts[:, 1:2] \
+        + normal_tri * torch.clamp(n_ts[:, 2:3], min=0.0)
+    n_p = n_p / _col(torch.sqrt(torch.clamp(dot(n_p, n_p), min=1e-20)))
+    apply_nm = (ntexid >= 0) & (t_len > 1e-6)
+    return torch.where(_col(apply_nm), n_p, normal_tri)
+
+
+def _shade_surface_fetch(cfg: RenderConfig, scene: SceneData, rays, o,
+                         t_safe, ident, is_tri, hit, frame, slot,
                          tri_normal=None):
     """Hit-surface data: sphere rows by index, triangle rows from the
-    tri_shade table (and the tri_attr row under smooth normals).  Returns
-    (is_sphere, srow, normal, refl_tri, color_tri, rough_tri); rough_tri
-    is tri_shade lane 7 (roughness, or a REFR triangle's IOR).
+    tri_shade table, and under the scene's gates one tri_attr row a ray
+    for smooth normals and the texture stack (albedo times the triangle
+    colour with its cutout alpha, the normal map composed after smooth
+    normals, the rough map clamped to [0.03, 1], the metalness pick on its
+    own stream).  Returns (is_sphere, srow, normal, refl_tri, color_tri,
+    rough_tri, em_tri, cut_alpha, blend_tri): rough_tri is tri_shade lane
+    7 (roughness, a REFR triangle's IOR or a LIGHT triangle's area),
+    em_tri the untextured tri_shade colour (the power pick's emission),
+    cut_alpha and blend_tri None unless the alpha and blend gates are on;
+    refl_tri has the refl lane's blend and metal flags stripped.
 
     With the traversal's ``tri_normal`` (unnormalised cross(e1, e2)) on a
     ``tri_default_mat`` scene, the triangle side needs no gather: the
@@ -371,6 +641,7 @@ def _shade_surface_fetch(scene: SceneData, o, ident, is_tri, hit,
     is_sphere = hit & ~is_tri
     srow = scene.sphere_table[sid]
     normal_sphere = (o - srow[:, 0:3]) / _col(srow[:, 3])
+    cut_alpha = blend_tri = em_tri = None
     if tri_normal is not None and scene.tri_default_mat:
         nlen = torch.sqrt(torch.clamp(dot(tri_normal, tri_normal),
                                       min=1e-30))
@@ -380,12 +651,78 @@ def _shade_surface_fetch(scene: SceneData, o, ident, is_tri, hit,
         tid = torch.clamp(ident, 0, scene.tri_shade.shape[0] - 1).long()
         trow = scene.tri_shade[tid]
         normal_tri = trow[:, 0:3]
-        if scene.smooth_normals:
-            normal_tri = _smooth_normal(scene, tid, o, normal_tri)
         refl_tri = trow[:, 3].to(torch.int32)
-        color_tri, rough_tri = trow[:, 4:7], trow[:, 7]
+        if scene.has_metal_maps:
+            # the metal flag rides the refl lane as +32
+            metal_tri = refl_tri >= 32
+            refl_tri = torch.where(metal_tri, refl_tri - 32, refl_tri)
+        if scene.has_blend:
+            # the stochastic-blend flag rides the refl lane as +16
+            blend_tri = refl_tri >= 16
+            refl_tri = torch.where(blend_tri, refl_tri - 16, refl_tri)
+        color_tri = em_tri = trow[:, 4:7]
+        rough_tri = trow[:, 7]
+        maps = scene.has_textures or scene.has_normal_maps \
+            or scene.has_rough_maps
+        if maps or scene.smooth_normals:
+            arow, bu, bv = _attr_fetch(scene, tid, o)
+        if maps:
+            uv_t = _attr_uv(arow, bu, bv)
+            uv_fp = None
+            if cfg.texture_filter == "trilinear" and scene.tex_meta \
+                    and len(scene.tex_meta[0]) > 5:
+                # the ray-cone footprint: a pixel subtends about 1.5/H
+                # world units per unit distance, mapped through the
+                # triangle's uv gradients (a bounce reuses its segment's
+                # t, without the cone's growth terms)
+                grad_u = arow[:, 3:6] * arow[:, 11:12] \
+                    + arow[:, 6:9] * arow[:, 13:14]
+                grad_v = arow[:, 3:6] * arow[:, 12:13] \
+                    + arow[:, 6:9] * arow[:, 14:15]
+                fp_world = t_safe * (1.5 / cfg.height)
+                uv_fp = (fp_world * torch.sqrt(torch.clamp(
+                             dot(grad_u, grad_u), min=1e-20)),
+                         fp_world * torch.sqrt(torch.clamp(
+                             dot(grad_v, grad_v), min=1e-20)))
+        if scene.has_textures:
+            # the albedo taps also return the cutout alpha when the scene
+            # has one (the rows are fetched whole)
+            texid = arow[:, 15].to(torch.int32)
+            albedo = _sample_texture(
+                scene, texid, uv_t[:, 0], uv_t[:, 1], cfg.texture_filter,
+                channels=4 if scene.has_alpha_tex else 3, uv_fp=uv_fp)
+            color_tri = color_tri * torch.where(_col(texid >= 0),
+                                                albedo[:, :3], 1.0)
+            if scene.has_alpha_tex:
+                cut_alpha = torch.where(texid >= 0, albedo[:, 3], 1.0)
+        if scene.smooth_normals:
+            normal_tri = _smooth_normal(arow, bu, bv, normal_tri)
+        if scene.has_normal_maps:
+            normal_tri = _normal_mapped(scene, arow, uv_t, normal_tri,
+                                        cfg.texture_filter, uv_fp)
+        if scene.has_rough_maps:
+            # the red channel is the perceptual roughness, clamped as the
+            # scalar one is on the host
+            rtexid = arow[:, 31].to(torch.int32)
+            rrow = _sample_texture(scene, rtexid, uv_t[:, 0], uv_t[:, 1],
+                                   cfg.texture_filter, uv_fp=uv_fp)
+            rough_tri = torch.where(rtexid >= 0,
+                                    torch.clamp(rrow[:, 0], 0.03, 1.0),
+                                    rough_tri)
+            if scene.has_metal_maps:
+                # metalness (channel 1 of the same rows): the GGX conductor
+                # with that probability, else DIFF (glTF's linear mix of
+                # the two lobes, evaluated stochastically), from a side
+                # stream
+                _, u_m = rng.random_float(
+                    rng.seed_from(frame, rays["pixel"], slot, 0, 0x4E7A1))
+                m_tex = torch.where(rtexid >= 0, rrow[:, 1], 1.0)
+                pick_ggx = metal_tri & (u_m < m_tex)
+                refl_tri = torch.where(pick_ggx, GGX, torch.where(
+                    metal_tri, DIFF, refl_tri))
     normal = torch.where(_col(is_sphere), normal_sphere, normal_tri)
-    return is_sphere, srow, normal, refl_tri, color_tri, rough_tri
+    return (is_sphere, srow, normal, refl_tri, color_tri, rough_tri, em_tri,
+            cut_alpha, blend_tri)
 
 
 def _ggx_eval(normal, view, light_dir, alpha, f0):
@@ -407,10 +744,11 @@ def _ggx_eval(normal, view, light_dir, alpha, f0):
 
 def _shade_emitter_hit(cfg: RenderConfig, scene: SceneData, rays, d,
                        normal, t_safe, hit, refl, refl_tri, color_tri,
-                       rough_tri, is_sphere, srow, direct):
+                       rough_tri, is_sphere, srow, em_tri, direct):
     """Emitter hits: the emission of the hit sphere or LIGHT triangle (two
-    sided).  Without MIS, collected on specular-born paths, and the
-    throughput of diffuse-born ones stopped (NEE counted them); with MIS,
+    sided; a textured one emits its texel's colour, the power pick reads
+    the untextured ``em_tri``).  Without MIS, collected on specular-born
+    paths, and the throughput of diffuse-born ones stopped (NEE counted them); with MIS,
     every hit weighted by the balance heuristic between the pdf of the
     BSDF sample that made the ray and the NEE pdf of this emitter point,
     and the path stopped."""
@@ -442,7 +780,7 @@ def _shade_emitter_hit(cfg: RenderConfig, scene: SceneData, rays, d,
         # table's float32 luminance x area
         em_base = srow[:, 7:10]
         if scene.n_tri_lights:
-            em_base = torch.where(_col(is_sphere), em_base, color_tri)
+            em_base = torch.where(_col(is_sphere), em_base, em_tri)
         lum_hit = (float(LUM_RGB[0]) * em_base[:, 0]
                    + float(LUM_RGB[1]) * em_base[:, 1]
                    + float(LUM_RGB[2]) * em_base[:, 2])
@@ -661,15 +999,18 @@ def _shade_nee_samples(cfg: RenderConfig, scene: SceneData,
 
 
 def _shade_nee_weights(cfg: RenderConfig, scene: SceneData,
-                       sky_params: skymod.SkyParams, d, normal, direct, hit,
-                       refl, sun_dir, nee, ggx=None):
-    """DIFF and PHONG NEE estimators, and GGX's when ``ggx`` = (is_ggx,
-    alpha, f0) is given, from the samples of :func:`_shade_nee_samples`;
-    under MIS the NEE-side balance weights (a delta light's weight 1).
-    Returns the shadow-queue fields, the reflection vector the PHONG
-    bounce reuses, the DIFF/PHONG masks, the BSDF pdf toward a direction
-    (the bounce's MIS pdf) and the sun strategy's solid-angle pdf (the
-    miss path's MIS weight; None without MIS)."""
+                       sky_params: skymod.SkyParams, d, o, normal, direct,
+                       hit, refl, sun_dir, nee, ggx=None, is_fog=None):
+    """DIFF and PHONG NEE estimators, GGX's when ``ggx`` = (is_ggx, alpha,
+    f0) is given and the fog medium's (the HG phase for the BRDF times
+    cosine) at the medium events ``is_fog``, from the samples of
+    :func:`_shade_nee_samples`; under MIS the NEE-side balance weights (a
+    delta light's weight 1); under fog every shadow colour times the slab
+    transmittance along its segment from ``o``.  Returns the shadow-queue
+    fields, the reflection vector the PHONG bounce reuses, the DIFF/PHONG
+    masks, the BSDF pdf toward a direction (the bounce's MIS pdf) and the
+    sun strategy's solid-angle pdf (the miss path's MIS weight; None
+    without MIS)."""
     eps = cfg.epsilon
     mis = cfg.mis == "on"
     env_nee = mis and scene.has_envmap
@@ -743,6 +1084,20 @@ def _shade_nee_weights(cfg: RenderConfig, scene: SceneData,
         shadow_color = torch.where(
             _col(is_ggx), torch.where(sun_c, ggx_sun_color, ggx_light_color),
             shadow_color)
+    if is_fog is not None:
+        # a medium event: the phase function replaces the BRDF times the
+        # cosine; the sun strategy keeps the reference's radiance scale
+        # (DIFF's sun_cos * 1e-5 stands for INV_PI * cos * C: C = pi 1e-5)
+        fog_sun_color = inv_p_sun * direct * sun_radiance * _col(
+            hg_phase(dot(d, sun_sample), cfg.fog_g)
+            * (1.0 if env_nee else PI * 1e-5))
+        fog_light_color = light_e2 * nl_col * direct * _col(
+            solid_angle * hg_phase(dot(d, ldir), cfg.fog_g))
+        fog_light_ok = ~choose_sun & (cos_light > 0) & has_light
+        shadow_ok = torch.where(is_fog, choose_sun | fog_light_ok, shadow_ok)
+        shadow_color = torch.where(
+            _col(is_fog), torch.where(sun_c, fog_sun_color, fog_light_color),
+            shadow_color)
 
     def bsdf_pdf_toward(ddir):
         """Solid-angle pdf of this vertex's BSDF sampler producing
@@ -760,6 +1115,9 @@ def _shade_nee_weights(cfg: RenderConfig, scene: SceneData,
             p_ggx = ggx_g1(nv_l, ggx_alpha) \
                 * ggx_d_vec(normal, h_l, ggx_alpha) / (4.0 * nv_l)
             p = torch.where(is_ggx, p_ggx, p)
+        if is_fog is not None:
+            # the HG phase is its own solid-angle pdf
+            p = torch.where(is_fog, hg_phase(dot(d, ddir), cfg.fog_g), p)
         return p
 
     p_sun_sa = None
@@ -791,6 +1149,21 @@ def _shade_nee_weights(cfg: RenderConfig, scene: SceneData,
     ldist_occ = ldist * (1.0 - 1e-3) if scene.n_tri_lights else ldist
     shadow_maxd = torch.where(choose_sun, torch.full_like(ldist, VERY_FAR),
                               ldist_occ)
+    if is_fog is not None:
+        # every connection pays the slab's transmittance along its shadow
+        # segment (to the slab's exit for the sun, to the sampled point for
+        # a light)
+        sh_ta, sh_len = _fog_overlap(
+            o, shadow_dir, torch.where(choose_sun, VERY_FAR, ldist),
+            cfg.fog_z_min, cfg.fog_z_max)
+        f_sigma_t = cfg.fog_sigma_s + cfg.fog_sigma_a
+        if cfg.fog_falloff:
+            s_rho0, s_k = _fog_density_coeffs(o, shadow_dir, sh_ta,
+                                              cfg.fog_falloff)
+            sh_tau = _fog_optical_depth(f_sigma_t, s_rho0, s_k, sh_len)
+        else:
+            sh_tau = f_sigma_t * sh_len
+        shadow_color = shadow_color * _col(torch.exp(-sh_tau))
     return (shadow_ok, shadow_dir, shadow_color, shadow_maxd, w_refl,
             is_diff, is_phong, bsdf_pdf_toward, p_sun_sa)
 
@@ -833,14 +1206,18 @@ def _glass_eta(cfg: RenderConfig, scene: SceneData, rays, direct, hit,
 def _shade_bounce(cfg: RenderConfig, scene: SceneData, rays, d, o, normal,
                   direct, hit, refl, is_tri, is_sphere, srow, rough_tri,
                   outside, is_diff, is_phong, w_refl, obj_color, t_safe,
-                  seed, frame, slot, ggx=None, bsdf_pdf_toward=None):
+                  seed, frame, slot, ggx=None, bsdf_pdf_toward=None,
+                  is_fog=None, is_pass=None):
     """Bounce sampling: DIFF cosine hemisphere, SPEC mirror, REFR Fresnel/
     TIR/Beer-Lambert (per-triangle IOR, dispersion), PHONG lobe with
     rejection, and under the scene's flags the GGX VNDF lobe (``ggx`` =
-    (is_ggx, alpha)) and RREFR rough glass.  Under MIS
-    (``bsdf_pdf_toward`` given) also the pdf of the sampled direction, 0
-    for a delta-born ray (mirror and both glass branches).  Returns (seed,
-    new_dir, direct, new_last_spec, next_bsdf_pdf or None, origin_out)."""
+    (is_ggx, alpha)), RREFR rough glass, the fog medium's HG lobe at the
+    medium events ``is_fog`` and the cutout pass-throughs ``is_pass``
+    (the ray goes on behind the surface with its history and pdf).  Under
+    MIS (``bsdf_pdf_toward`` given) also the pdf of the sampled direction,
+    0 for a delta-born ray (mirror and both glass branches).  Returns
+    (seed, new_dir, direct, new_last_spec, next_bsdf_pdf or None,
+    origin_out)."""
     eps = cfg.epsilon
     seed, diff_dir = cosine_hemisphere_sample(normal, seed)
     diff_new_dir = torch.where(_col(rays["bounces"] < cfg.max_bounces),
@@ -943,15 +1320,33 @@ def _shade_bounce(cfg: RenderConfig, scene: SceneData, rays, d, o, normal,
                                       torch.ones_like(beer))
         rr_transmit = is_rrefr & ~rr_reflects
 
+    if is_fog is not None:
+        # the medium event's bounce: the exact HG inverse CDF around the
+        # incoming direction (pdf = phase: weight 1; the albedo came
+        # through the colour multiply)
+        fs = rng.seed_from(frame, rays["pixel"], slot, 0, 0xF09)
+        fs, fu1 = rng.random_float(fs)
+        _, fu2 = rng.random_float(fs)
+        fog_dir = hg_sample_from_uniforms(d, cfg.fog_g, fu1, fu2)
+        new_dir = torch.where(_col(is_fog), fog_dir, new_dir)
+
     new_last_spec = (hit & (refl == SPEC)) | (is_refr & refr_reflects)
     if scene.has_rrefr:
         new_last_spec = new_last_spec | is_rrefr
+    if is_pass is not None:
+        # a pass-through keeps the path's BSDF history
+        new_last_spec = torch.where(is_pass, rays["last_specular"],
+                                    new_last_spec)
     next_bsdf_pdf = None
     if bsdf_pdf_toward is not None:
         is_delta_born = new_last_spec | (is_refr & ~refr_reflects)
         next_bsdf_pdf = torch.where(
             is_delta_born, torch.zeros_like(t_safe),
             torch.clamp(bsdf_pdf_toward(new_dir), min=1e-8))
+        if is_pass is not None:
+            # and the pdf of the sample that made it
+            next_bsdf_pdf = torch.where(is_pass, rays["bsdf_pdf"],
+                                        next_bsdf_pdf)
     zero = torch.zeros_like(normal)
     origin_out = o \
         + torch.where(_col(is_refr & ~refr_reflects), -2.0 * eps * normal,
@@ -961,6 +1356,11 @@ def _shade_bounce(cfg: RenderConfig, scene: SceneData, rays, d, o, normal,
         # transmitted rough-glass rays start behind the surface, like REFR
         origin_out = origin_out + torch.where(_col(rr_transmit),
                                               -2.0 * eps * normal, zero)
+    if is_pass is not None:
+        # step through the cutout surface (the face-forward offset would
+        # hit it again)
+        origin_out = origin_out + torch.where(_col(is_pass),
+                                              -2.0 * eps * normal, zero)
     return seed, new_dir, direct, new_last_spec, next_bsdf_pdf, origin_out
 
 
@@ -969,27 +1369,67 @@ def _shade(cfg: RenderConfig, scene: SceneData, sky_params: skymod.SkyParams,
     """Shade every queue slot.  Returns (color, survive, next_rays,
     shadow).  ``tri_normal``: the traversal's hit normals, which a
     ``tri_default_mat`` scene shades from without the tri_shade gather
-    (:func:`_shade_surface_fetch`)."""
+    (:func:`_shade_surface_fetch`).  Under fog a segment may end in a
+    medium event before its surface (pseudo-material FOG); a cutout hit
+    below its alpha threshold (0.5, or a uniform on a blend triangle)
+    passes through (PASS): no shading, no NEE, no colour."""
     n = cfg.num_rays
     eps = cfg.epsilon
     d = rays["direction"]
     slot = torch.arange(n, dtype=torch.int64, device=d.device)
 
+    fog_on = _fog_on(cfg)
+    is_fog = None
+    if fog_on:
+        t, is_fog = _shade_fog_sample(cfg, rays, t, frame, slot)
+
     hit = t < VERY_FAR
     t_safe = torch.where(hit, t, torch.zeros_like(t))
     o = rays["origin"] + d * _col(t_safe)
 
-    is_sphere, srow, normal, refl_tri, color_tri, rough_tri = \
-        _shade_surface_fetch(scene, o, ident, is_tri, hit, tri_normal)
+    (is_sphere, srow, normal, refl_tri, color_tri, rough_tri, em_tri,
+     cut_alpha, blend_tri) = _shade_surface_fetch(
+        cfg, scene, rays, o, t_safe, ident, is_tri, hit, frame, slot,
+        tri_normal)
     refl = torch.where(is_sphere, srow[:, 10].to(torch.int32), refl_tri)
     refl = torch.where(hit, refl, torch.full_like(refl, DIFF))
     obj_color = torch.where(_col(is_sphere), srow[:, 4:7], color_tri)
 
+    if fog_on:
+        # a medium event has no surface: the normal -d makes the
+        # face-forward a no-op and backs the offset off along the ray; the
+        # colour multiply is the scattering albedo
+        is_sphere = is_sphere & ~is_fog
+        normal = torch.where(_col(is_fog), -d, normal)
+        refl = torch.where(is_fog, FOG, refl)
+        obj_color = torch.where(
+            _col(is_fog), cfg.fog_sigma_s / (cfg.fog_sigma_s
+                                              + cfg.fog_sigma_a), obj_color)
+
+    is_pass = None
+    if scene.has_alpha_tex:
+        # alpha cutout; shadow rays stay alpha-blind, as in the JAX package
+        thresh = 0.5
+        if scene.has_blend:
+            # stochastic transparency: a blend hit shades with probability
+            # alpha, from a side stream
+            _, u_b = rng.random_float(
+                rng.seed_from(frame, rays["pixel"], slot, 0, 0xB1E2D))
+            thresh = torch.where(blend_tri,
+                                 torch.clamp(u_b, 1e-6, 1.0 - 1e-6), 0.5)
+        is_pass = hit & is_tri & (cut_alpha < thresh)
+        if fog_on:
+            is_pass = is_pass & ~is_fog
+        refl = torch.where(is_pass, PASS, refl)
+
     # throughput *= color for materials except REFR/LIGHT (and RREFR,
-    # coloured by Beer-Lambert, and GGX, whose colour is its Fresnel F0)
+    # coloured by Beer-Lambert, GGX, whose colour is its Fresnel F0, and
+    # a pass-through)
     mul_mask = hit & (refl != REFR) & (refl != LIGHT)
     if scene.has_rrefr:
         mul_mask = mul_mask & (refl != RREFR)
+    if is_pass is not None:
+        mul_mask = mul_mask & (refl != PASS)
     ggx = None
     if scene.has_ggx:
         mul_mask = mul_mask & (refl != GGX)
@@ -1006,21 +1446,22 @@ def _shade(cfg: RenderConfig, scene: SceneData, sky_params: skymod.SkyParams,
     mis = cfg.mis == "on"
     color, direct = _shade_emitter_hit(
         cfg, scene, rays, d, normal, t_safe, hit, refl, refl_tri, color_tri,
-        rough_tri, is_sphere, srow, direct)
+        rough_tri, is_sphere, srow, em_tri, direct)
 
     seed = rng.seed_from(frame, rays["pixel"], slot, 0, 0x5ADE)
     nee = _shade_nee_samples(cfg, scene, sky_params, sun_dir, rays, o,
                              normal, frame, slot, seed)
     (shadow_ok, shadow_dir, shadow_color, shadow_maxd, w_refl, is_diff,
      is_phong, bsdf_pdf_toward, p_sun_sa) = _shade_nee_weights(
-        cfg, scene, sky_params, d, normal, direct, hit, refl, sun_dir, nee,
-        ggx=None if ggx is None else (*ggx, obj_color))
+        cfg, scene, sky_params, d, o, normal, direct, hit, refl, sun_dir,
+        nee, ggx=None if ggx is None else (*ggx, obj_color), is_fog=is_fog)
     seed, new_dir, direct, new_last_spec, next_bsdf_pdf, origin_out = \
         _shade_bounce(cfg, scene, rays, d, o, normal, direct, hit, refl,
                       is_tri, is_sphere, srow, rough_tri, outside, is_diff,
                       is_phong, w_refl, obj_color, t_safe, nee["seed"],
                       frame, slot, ggx=ggx,
-                      bsdf_pdf_toward=bsdf_pdf_toward if mis else None)
+                      bsdf_pdf_toward=bsdf_pdf_toward if mis else None,
+                      is_fog=is_fog, is_pass=is_pass)
 
     # Russian roulette
     p = torch.clamp(direct.amax(-1), max=1.0)
@@ -1114,8 +1555,9 @@ def render_aovs(scene: SceneData, camera: CameraParams, cfg: RenderConfig,
                 tables: PacketTables) -> dict:
     """One deterministic primary-ray pass over :func:`aov_primaries`:
     {albedo [H, W, 3], normal [H, W, 3], depth [H, W]}, the guides of the
-    à-trous denoiser.  The normal faces the ray; misses give albedo 1,
-    normal 0 and depth VERY_FAR."""
+    à-trous denoiser, with the albedo texture and the smooth and mapped
+    normals.  The normal faces the ray; misses give albedo 1, normal 0 and
+    depth VERY_FAR."""
     w, h = cfg.width, cfg.height
     o, d = aov_primaries(camera, cfg)
     t, ident, is_tri = _intersect_scene(o, d, scene, tables,
@@ -1128,13 +1570,28 @@ def render_aovs(scene: SceneData, camera: CameraParams, cfg: RenderConfig,
     tid = torch.clamp(ident, 0, scene.tri_shade.shape[0] - 1).long()
     trow = scene.tri_shade[tid]
     normal_tri = trow[:, 0:3]
-    if scene.smooth_normals:
-        normal_tri = _smooth_normal(scene, tid, hp, normal_tri)
+    color_tri = trow[:, 4:7]
+    if scene.has_textures or scene.smooth_normals or scene.has_normal_maps:
+        arow, bu, bv = _attr_fetch(scene, tid, hp)
+        # the maps as shade samples them, trilinear as bilinear (the pass
+        # has no ray cone)
+        filt = "bilinear" if cfg.texture_filter == "trilinear" \
+            else cfg.texture_filter
+        if scene.has_textures or scene.has_normal_maps:
+            uv_t = _attr_uv(arow, bu, bv)
+        if scene.has_textures:
+            texid = arow[:, 15].to(torch.int32)
+            alb = _sample_texture(scene, texid, uv_t[:, 0], uv_t[:, 1], filt)
+            color_tri = color_tri * torch.where(_col(texid >= 0), alb, 1.0)
+        if scene.smooth_normals:
+            normal_tri = _smooth_normal(arow, bu, bv, normal_tri)
+        if scene.has_normal_maps:
+            normal_tri = _normal_mapped(scene, arow, uv_t, normal_tri, filt)
     normal = torch.where(_col(is_sphere), (hp - srow[:, 0:3]) / srow[:, 3:4],
                          normal_tri)
     normal = torch.where(_col(dot(normal, d) < 0), normal, -normal)
     normal = torch.where(_col(hit), normal, torch.zeros_like(normal))
-    albedo = torch.where(_col(is_sphere), srow[:, 4:7], trow[:, 4:7])
+    albedo = torch.where(_col(is_sphere), srow[:, 4:7], color_tri)
     albedo = torch.where(_col(hit), albedo, torch.ones_like(albedo))
     depth = torch.where(hit, t, torch.full_like(t, VERY_FAR))
     return dict(albedo=albedo.reshape(h, w, 3), normal=normal.reshape(h, w, 3),

@@ -2,16 +2,16 @@
 spheres plus one triangle mesh (or the flattened union of instanced
 meshes) loaded from PLY, OBJ/MTL, STL, glTF or a JSON description, with
 per-triangle DIFF/SPEC/REFR/PHONG/GGX/RREFR/LIGHT materials, a
-per-triangle glass IOR, smooth vertex normals, and the lights: emissive
-spheres and triangles, point/spot/directional delta lights and an
-equirectangular environment map, with the per-light power table and the
-alias rows of the power and environment importance samplers.
+per-triangle glass IOR, smooth vertex normals, textures (albedo with
+cutout alpha, tangent-space normal maps, roughness and metalness maps,
+stochastic alpha blend, per-texture wrap modes, a mip pyramid), and the
+lights: emissive spheres and triangles, point/spot/directional delta
+lights and an equirectangular environment map, with the per-light power
+table and the alias rows of the power and environment importance
+samplers.
 
 Host loading and packing are the JAX package's numpy code, so every
-table equals the JAX one bit for bit.  Scene features the port does not
-shade yet raise ValueError, naming them, when the scene is uploaded
-(:meth:`Scene.to_device`): textures and normal, roughness, alpha, blend
-and metal maps.
+table equals the JAX one bit for bit.
 """
 
 from __future__ import annotations
@@ -170,10 +170,21 @@ class SceneData:
         0.5 |cross(e1, e2)|, which the MIS emitter-hit pdf reads)
     sphere_table [max(S, 1), 12]: center.xyz, radius, color.rgb,
         emission.rgb, refl, roughness (one inert row when S = 0)
-    tri_attr [T+pad, 32] with smooth normals, else [4, 32] zeros:
-        v0.xyz, s1.xyz, s2.xyz (the dual basis of the edges: barycentrics
-        from the hit point with two dots), lanes 9:16 texture slots,
-        n0.xyz, dn1.xyz, dn2.xyz, smooth flag, lanes 26:32 map slots
+        The refl lane carries +16 on a stochastic-blend triangle (only
+        under ``has_blend``) and +32 on a metal-mapped GGX triangle (only
+        under ``has_metal_maps``); shade strips both before comparing.
+    tri_attr [T+pad, 32] with smooth normals, textures or maps, else
+        [4, 32] zeros: v0.xyz, s1.xyz, s2.xyz (the dual basis of the
+        edges: barycentrics from the hit point with two dots), uv0,
+        duv1, duv2 (9:15), albedo texture id (15), n0.xyz, dn1.xyz,
+        dn2.xyz, smooth flag (25), normal-map id (26, -1 on a degenerate
+        uv), the uv tangent (27:30), its handedness (30), rough-map id
+        (31); ids -1 where absent
+    tex_data [N+1, 4]: the texel atlas (``TextureAtlas.pack(mips=True)``:
+        rgb and cutout alpha, row 0 white; the mip levels after every base
+        image), [1, 4] ones without textures.  ``tex_meta`` holds one
+        static entry a texture, (offset, height, width, wrap_s, wrap_t,
+        ((offset, height, width) a mip level, level 0 first)), () without
     tri_lights [K, 13] (original triangle order), [1, 13] zeros when
         K = n_tri_lights = 0: v0.xyz, e1.xyz, e2.xyz, emission.rgb, area
     delta_lights [L, 12] (``DeltaLights.pack``), [1, 12] zeros when L =
@@ -193,9 +204,13 @@ class SceneData:
 
     The flags and counts are host values; the render step gates each term
     on them in Python, so a scene without a feature issues no op for it.
+    The texture gates: ``has_albedo_tex`` (``has_textures``),
+    ``has_normal_maps``, ``has_rough_maps``, ``has_alpha_tex`` (an albedo
+    texture's alpha is below 1 somewhere: cutout), ``has_blend`` (needs
+    the alpha taps) and ``has_metal_maps`` (needs the rough-map taps).
     ``tri_default_mat``: every triangle is the default material (DIFF,
     colour 1, roughness 0.3: no per-triangle material or colour, no smooth
-    normals), so shade needs only a hit triangle's geometric normal, which
+    normals, textures or maps), so shade needs only a hit triangle's geometric normal, which
     the traversal kernel can return (``use_kernel_normals``).
     """
 
@@ -225,6 +240,14 @@ class SceneData:
     env_data: Optional[torch.Tensor] = None
     env_alias: Optional[torch.Tensor] = None
     env_meta: tuple = ()
+    tex_data: Optional[torch.Tensor] = None
+    tex_meta: tuple = ()
+    has_albedo_tex: bool = False
+    has_normal_maps: bool = False
+    has_rough_maps: bool = False
+    has_alpha_tex: bool = False
+    has_blend: bool = False
+    has_metal_maps: bool = False
 
     @property
     def n_spheres(self) -> int:
@@ -233,6 +256,11 @@ class SceneData:
     @property
     def has_envmap(self) -> bool:
         return len(self.env_meta) > 0
+
+    @property
+    def has_textures(self) -> bool:
+        """Albedo textures present (the colour taps' gate)."""
+        return self.has_albedo_tex
 
 
 @dataclasses.dataclass
@@ -384,41 +412,8 @@ class Scene:
         s.stats["unique_meshes"] = len(meshes)
         return s
 
-    def unported(self) -> list[str]:
-        """Names of the scene's features the port does not shade; empty
-        when the scene can be uploaded.  A feature counts when the JAX
-        package would shade it (an unused texture list does not)."""
-        mesh = self.bvh is not None
-        has_atlas = (self.textures is not None and len(self.textures) > 0
-                     and self.tri_uv is not None and mesh)
-
-        def used(ids):
-            return has_atlas and ids is not None \
-                and bool((np.asarray(ids) >= 0).any())
-
-        def flagged(mask, where=True):
-            return mask is not None and bool((np.asarray(mask) & where).any())
-        refl = None if self.tri_refl is None else np.asarray(self.tri_refl)
-        has_tex, has_rmap = used(self.tri_tex), used(self.tri_rtex)
-        has_alpha = has_tex and any(
-            im.shape[2] >= 4 and bool((np.asarray(im[:, :, 3]) < 1.0).any())
-            for im in self.textures)
-        named = (
-            ("textures", has_tex),
-            ("alpha maps", has_alpha),
-            ("blend", has_alpha and flagged(self.tri_blend)),
-            ("normal maps", used(self.tri_ntex)),
-            ("roughness maps", has_rmap),
-            ("metal maps", has_rmap and refl is not None
-             and flagged(self.tri_metal, refl == GGX)))
-        return [name for name, present in named if present]
-
     def to_device(self, device) -> SceneData:
-        """Upload the tables to ``device``.  Raises ValueError naming the
-        scene features the port does not shade (:meth:`unported`)."""
-        bad = self.unported()
-        if bad:
-            raise ValueError(f"scene features not ported: {', '.join(bad)}")
+        """Upload the tables to ``device``."""
         if self.bvh is None:
             # spheres-only: single degenerate leaf, so traversal is a no-op
             meta = pack_meta(np.zeros(1, np.int64), np.ones(1, np.int64),
@@ -477,9 +472,35 @@ class Scene:
             tri_shade[is_rf, 7] = ior_p[is_rf]
             has_var_ior = bool((is_rf & (np.abs(ior_p - 1.2) > 1e-6)).any())
 
+        # the texture gates, once, on the host
+        has_atlas = (self.textures is not None and len(self.textures) > 0
+                     and self.tri_uv is not None and self.bvh is not None)
+
+        def used(ids):
+            return bool(has_atlas and ids is not None
+                        and (np.asarray(ids) >= 0).any())
+        has_tex, has_nmap = used(self.tri_tex), used(self.tri_ntex)
+        has_rmap = used(self.tri_rtex)
         has_smooth = self.tri_vn is not None and self.bvh is not None
-        if has_smooth:
-            tri_attr = self._attr_rows(tp.shape[0])
+        has_alpha = bool(has_tex and any(
+            im.shape[2] >= 4 and (np.asarray(im[:, :, 3]) < 1.0).any()
+            for im in self.textures))
+        # the refl-lane flags, written only under their gates: a blend flag
+        # needs the alpha taps, a metal flag the rough-map taps and a GGX
+        # triangle (dropped per triangle elsewhere)
+        blend = self._leaf_mask(self.tri_blend, tp.shape[0])
+        has_blend = bool(has_alpha and blend.any())
+        if has_blend:
+            tri_shade[:, 3] += 16.0 * blend
+        metal = self._leaf_mask(self.tri_metal, tp.shape[0]) \
+            & (tri_refl == GGX)
+        has_metal = bool(has_rmap and metal.any())
+        if has_metal:
+            tri_shade[:, 3] += 32.0 * metal
+        tex = dict(tex_data=None, tex_meta=())
+        if has_tex or has_smooth or has_nmap or has_rmap:
+            tri_attr, tex = self._attr_rows(tp.shape[0], has_tex, has_nmap,
+                                            has_rmap, has_smooth)
         else:
             tri_attr = np.zeros((4, 32), np.float32)
 
@@ -508,7 +529,21 @@ class Scene:
                            or (tri_refl == RREFR).any()),
             has_var_ior=has_var_ior,
             tri_default_mat=(self.tri_refl is None and self.tri_color is None
-                             and not has_smooth))
+                             and not has_tex and not has_smooth
+                             and not has_nmap and not has_rmap),
+            **tex, has_albedo_tex=has_tex, has_normal_maps=has_nmap,
+            has_rough_maps=has_rmap, has_alpha_tex=has_alpha,
+            has_blend=has_blend, has_metal_maps=has_metal)
+
+    def _leaf_mask(self, mask, rows: int) -> np.ndarray:
+        """A per-triangle bool record [T] in leaf order, padded with False
+        to ``rows``."""
+        out = np.zeros(rows, bool)
+        if mask is not None and self.bvh is not None \
+                and np.asarray(mask).any():
+            m = np.asarray(mask, bool)[self.bvh.perm]
+            out[:m.shape[0]] = m
+        return out
 
     def _light_tables(self) -> dict:
         """The light tables of :class:`SceneData` as numpy, in the JAX
@@ -527,8 +562,7 @@ class Scene:
                    np.asarray(self.tri_color, np.float32)[lm])
             if self.textures is not None and self.tri_tex is not None:
                 # texture-modulated emitters: NEE and the power table use
-                # the texture's mean (unreachable while textures are
-                # refused on upload)
+                # the texture's mean (direct hits show the texel)
                 tt = np.asarray(self.tri_tex)[lm]
                 means = np.asarray(
                     [t[:, :, :3].reshape(-1, 3).mean(0)
@@ -609,10 +643,13 @@ class Scene:
             out["light_alias"] = la
         return out
 
-    def _attr_rows(self, rows: int) -> np.ndarray:
-        """tri_attr [rows, 32] for smooth normals: the dual basis of the
-        edges and the corner normals in leaf order; the texture and map
-        lanes keep their empty values (ids -1)."""
+    def _attr_rows(self, rows: int, has_tex: bool, has_nmap: bool,
+                   has_rmap: bool, has_smooth: bool):
+        """tri_attr [rows, 32] in leaf order (the dual basis of the edges,
+        and under their gates the uv lanes, the map ids, the uv tangent
+        with its handedness and the corner normals), and the texture
+        atlas {tex_data, tex_meta} when a map is used, as the JAX packer
+        fills them (tyrant_tpu/scene/scene.py to_device)."""
         perm = self.bvh.perm
         e1 = self.tri_e1[perm].astype(np.float64)
         e2 = self.tri_e2[perm].astype(np.float64)
@@ -630,13 +667,56 @@ class Scene:
         attr[:, 15] = -1.0
         attr[:, 26] = -1.0
         attr[:, 31] = -1.0
-        vn = np.asarray(self.tri_vn, np.float32)[perm]  # [T, 3, 3]
-        ok = (np.linalg.norm(vn, axis=2) > 1e-8).all(axis=1)
-        attr[:t, 16:19] = vn[:, 0]
-        attr[:t, 19:22] = vn[:, 1] - vn[:, 0]
-        attr[:t, 22:25] = vn[:, 2] - vn[:, 0]
-        attr[:t, 25] = ok.astype(np.float32)
-        return attr
+        tex = dict(tex_data=None, tex_meta=())
+        if has_tex or has_nmap or has_rmap:
+            from .texture import TextureAtlas
+            # mips=True: the pyramids ride after every base image, so the
+            # base offsets are those of a pack without mips
+            atlas = TextureAtlas.pack(self.textures, mips=True)
+            uv = np.asarray(self.tri_uv, np.float32)[perm]  # [T, 3, 2]
+            attr[:t, 9:11] = uv[:, 0]
+            attr[:t, 11:13] = uv[:, 1] - uv[:, 0]
+            attr[:t, 13:15] = uv[:, 2] - uv[:, 0]
+            if has_tex:
+                attr[:t, 15] = np.asarray(self.tri_tex, np.int32)[perm]
+            wraps = (self.texture_wraps if self.texture_wraps is not None
+                     else [(0, 0)] * len(atlas.meta))
+            tex = dict(tex_data=atlas.data, tex_meta=tuple(
+                (int(o), int(h), int(w), int(wraps[k][0]), int(wraps[k][1]),
+                 tuple((int(mo), int(mh), int(mw))
+                       for (mo, mh, mw) in atlas.mip_meta[k]))
+                for k, (o, h, w) in enumerate(atlas.meta)))
+        if has_nmap:
+            # the uv tangent T = (dv2 e1 - dv1 e2) / det and the
+            # bitangent's handedness; a degenerate uv map disables the map
+            du1 = (uv[:, 1] - uv[:, 0]).astype(np.float64)
+            du2 = (uv[:, 2] - uv[:, 0]).astype(np.float64)
+            det_uv = du1[:, 0] * du2[:, 1] - du2[:, 0] * du1[:, 1]
+            ok_uv = np.abs(det_uv) > 1e-12
+            inv = 1.0 / np.where(ok_uv, det_uv, 1.0)
+            tang = (du2[:, 1:2] * e1 - du1[:, 1:2] * e2) * inv[:, None]
+            bitan = (du1[:, 0:1] * e2 - du2[:, 0:1] * e1) * inv[:, None]
+            tlen = np.linalg.norm(tang, axis=1)
+            ok_uv &= tlen > 1e-12
+            tang = tang / np.maximum(tlen, 1e-30)[:, None]
+            geo_n = np.cross(e1, e2)
+            handed = np.where(
+                np.sum(np.cross(geo_n, tang) * bitan, axis=1) >= 0.0,
+                1.0, -1.0)
+            ntex = np.asarray(self.tri_ntex, np.int32)[perm]
+            attr[:t, 26] = np.where(ok_uv, ntex, -1)
+            attr[:t, 27:30] = tang.astype(np.float32)
+            attr[:t, 30] = handed.astype(np.float32)
+        if has_rmap:
+            attr[:t, 31] = np.asarray(self.tri_rtex, np.int32)[perm]
+        if has_smooth:
+            vn = np.asarray(self.tri_vn, np.float32)[perm]  # [T, 3, 3]
+            ok = (np.linalg.norm(vn, axis=2) > 1e-8).all(axis=1)
+            attr[:t, 16:19] = vn[:, 0]
+            attr[:t, 19:22] = vn[:, 1] - vn[:, 0]
+            attr[:t, 22:25] = vn[:, 2] - vn[:, 0]
+            attr[:t, 25] = ok.astype(np.float32)
+        return attr, tex
 
 
 def scene_data(bvh: BVHDevice, tri_shade, sphere_table, device, *,
@@ -646,10 +726,14 @@ def scene_data(bvh: BVHDevice, tri_shade, sphere_table, device, *,
                tri_lights=None, n_tri_lights: int = 0, delta_lights=None,
                n_delta_lights: int = 0, light_powers=None, light_alias=None,
                env_data=None, env_alias=None,
-               env_meta: tuple = ()) -> SceneData:
-    """SceneData from the numpy shade and light tables (shared by
-    Scene.to_device and interop); an absent light table gets the JAX
-    package's inert one-row stand-in.  The sphere columns are the first
+               env_meta: tuple = (), tex_data=None, tex_meta: tuple = (),
+               has_albedo_tex: bool = False, has_normal_maps: bool = False,
+               has_rough_maps: bool = False, has_alpha_tex: bool = False,
+               has_blend: bool = False,
+               has_metal_maps: bool = False) -> SceneData:
+    """SceneData from the numpy shade, texture and light tables (shared by
+    Scene.to_device and interop); an absent light or texel table gets the
+    JAX package's inert one-row stand-in.  The sphere columns are the first
     ``n_spheres`` rows of sphere_table (a zero-sphere scene keeps one
     inert row there).  The power pick's CDF, inverse pdfs and total are
     derived here from ``light_powers``."""
@@ -685,7 +769,13 @@ def scene_data(bvh: BVHDevice, tri_shade, sphere_table, device, *,
                      light_alias=table(light_alias, (1, 4)),
                      env_data=table(env_data, (1, 4), 1.0),
                      env_alias=table(env_alias, (1, 12)),
-                     env_meta=tuple(float(v) for v in env_meta))
+                     env_meta=tuple(float(v) for v in env_meta),
+                     tex_data=table(tex_data, (1, 4), 1.0),
+                     tex_meta=tuple(tex_meta), has_albedo_tex=has_albedo_tex,
+                     has_normal_maps=has_normal_maps,
+                     has_rough_maps=has_rough_maps,
+                     has_alpha_tex=has_alpha_tex, has_blend=has_blend,
+                     has_metal_maps=has_metal_maps)
 
 
 def _power_pick(pw: torch.Tensor):
