@@ -94,6 +94,8 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from tyrant_tpu_torch import adaptive as adaptive_mod  # noqa: E402
+from tyrant_tpu_torch import checkpoint  # noqa: E402
 from tyrant_tpu_torch import native  # noqa: E402
 from tyrant_tpu_torch import render as tr  # noqa: E402
 from tyrant_tpu_torch.bench import equivalence, interactive  # noqa: E402
@@ -216,18 +218,20 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def accum_bound(n: int, live: int, distinct: int,
-                value_bytes: int) -> tuple[float, str]:
+def accum_bound(n: int, live: int, distinct: int, value_bytes: int,
+                buffers: int = 1) -> tuple[float, str]:
     """The accumulation's bound on an ascending key column of ``n``
     entries: the keys through the first at or above P, a sector a block
     of the suffix after it, the values of the ``live`` entries below P,
-    the rows of their ``distinct`` pixels read and written; one add a
-    value lane (the count's too)."""
+    the rows of their ``distinct`` pixels read and written in each of the
+    ``buffers``; one add a value lane (the count's too), and with the
+    moment2 buffer 3 squares and 4 adds more."""
     keys = min(live + 1, n)
     suffix_blocks = -(-(n - keys) // ACCUM_BLOCK)
     return bound_ms(KEY_BYTES * keys + SECTOR_BYTES * suffix_blocks
-                    + value_bytes * live + PIXEL_ROW_BYTES * distinct,
-                    4 * live)
+                    + value_bytes * live
+                    + buffers * PIXEL_ROW_BYTES * distinct,
+                    (4 + 7 * (buffers - 1)) * live)
 
 
 def frontier_floor_ms(pairs) -> float:
@@ -737,6 +741,7 @@ def stage_split(trace_path: Path, steps: int) -> tuple[dict, float, dict]:
 
 LAUNCH_KEYS = ("traverse", "traverse_wave", "accumulate", "stream")
 NORMALS_KEYS = ("traverse_normals", "traverse_wave_normals")
+MOMENT2_KEYS = ("accumulate_moment2",)
 
 
 def reset_launches(*renderers) -> None:
@@ -771,8 +776,9 @@ def device_busy(trace_path: Path, steps: int) -> tuple[float, float]:
 def check_replays(ren, steps: int) -> None:
     """A captured renderer's ``steps`` since the reset: all replayed but
     the capture's eager warm-up, if it fell among them (the only step that
-    launches the accumulation from Python)."""
-    eager = kernels.launch_counts()["accumulate"]
+    launches the accumulation from Python, with or without moment2)."""
+    counts = kernels.launch_counts()
+    eager = counts["accumulate"] + counts["accumulate_moment2"]
     if eager > 1 or ren.replayed_steps != steps - eager:
         raise AssertionError(f"{ren.replayed_steps} of {steps} steps "
                              f"replayed, {eager} run eagerly")
@@ -786,14 +792,16 @@ def warm_profiler() -> None:
         torch.cuda.synchronize()
 
 
-def phase3(ren, poses_run=(0, 1, 2), label: str = ""):
+def phase3(ren, poses_run=(0, 1, 2), label: str = "",
+           camera=camera_for_pose):
     """The main path at full size (or, with a ``label``, another scene's
     path), with the traversal generation that ``ren.cfg.packet_kernel_mode``
     selects, eager or captured as ``ren.captured`` says: for each pose 4
     warm-up steps, 8 steps timed with CUDA events, then 2 steps under the
     profiler for the device's busy time and idle share, and for an eager
     renderer the per-stage device-time split (a graph replay has no
-    stages)."""
+    stages).  ``camera(i)``: pose i's camera.  Under ``track_variance`` or
+    adaptive sampling the accumulation is the moment2 mode's launch."""
     cfg = ren.cfg
     wave = tr._pick_wave(cfg, "extend")
     tag = label + ("wave" if wave else "mono") \
@@ -804,7 +812,7 @@ def phase3(ren, poses_run=(0, 1, 2), label: str = ""):
     total_steps = 0
     poses = []
     for i in poses_run:
-        cam = camera_for_pose(i)
+        cam = camera(i)
         ended = torch.zeros((), dtype=torch.int64, device=DEV)
 
         def run(steps, cam=cam, ended=ended):
@@ -874,7 +882,9 @@ def phase3(ren, poses_run=(0, 1, 2), label: str = ""):
             + " ".join(f"{k} {v:.3f}" for k, v in split.items())
             + "; device ops a step " + " ".join(f"{k} {v:g}"
                                                 for k, v in ops.items())))
-    launches = read_launches(ren)
+    moments = tr._moments(cfg)
+    launches = read_launches(ren, keys=LAUNCH_KEYS + MOMENT2_KEYS
+                             if moments else LAUNCH_KEYS)
     if ren.captured:
         check_replays(ren, total_steps)
     log(f"phase 3 {tag} launches over {total_steps} steps: {launches}"
@@ -882,7 +892,9 @@ def phase3(ren, poses_run=(0, 1, 2), label: str = ""):
            else ""))
     want = {"traverse": 0 if wave else 2 * total_steps,
             "traverse_wave": 2 * total_steps if wave else 0,
-            "accumulate": total_steps, "stream": 0}
+            "accumulate": 0 if moments else total_steps, "stream": 0}
+    if moments:
+        want["accumulate_moment2"] = total_steps
     if launches != want:
         raise AssertionError(f"main path did not run through the kernels: "
                              f"{launches}, expected {want}")
@@ -1013,20 +1025,26 @@ def simt_counts(row_visits, live) -> dict:
                 simt_live_packed=efficiency(packed))
 
 
-def kernels_at_slice(ren, stream: bool = True, label: str = "slice") -> dict:
+def kernels_at_slice(ren, stream: bool = True, label: str = "slice",
+                     camera=camera_for_pose) -> dict:
     """The traversal kernels against the plain walk, compared and timed
     on the inputs the path gives them in pose 0's next step (the stream
     kernel on the two closest-hit queues unless ``stream`` is False): the
     extend queue seeded with the sphere pass's t (VERY_FAR everywhere in a
     scene without spheres), the shadow queue that shade makes from those
     hits, and the AOV pass's pixel-centre primaries with their sphere t;
-    and the accumulation on the queue of the step before."""
+    and the accumulation on the queue of the step before.  ``camera(0)``:
+    pose 0's camera; under motion blur the queue's fresh rays lerp from
+    the renderer's previous pose, as the step's do."""
     cfg, sc = ren.cfg, ren.scene
-    cam = camera_for_pose(0)
+    cam = camera(0)
     ren.step(cam, 1)
     accum = accum_at_step(ren)
     camd = cam.to_device(cfg, DEV)
-    rays = tr.merge_queue(cfg, ren.state, camd)
+    prev = None
+    if ren._blur:
+        prev = ren._cam_prev if ren.captured else ren._prev_cam
+    rays = tr.merge_queue(cfg, ren.state, camd, prev)
     o, d = rays["origin"], rays["direction"]
     t_sph, sph_id = tr.sphere_pass(o, d, sc)
     extend = check_queue(f"{label} extend closest", o, d, t_sph, ren.tables,
@@ -1786,13 +1804,19 @@ def card_vs_cpu(scene, cfg: RenderConfig, what: str,
     return mad
 
 
-def path_checks(label: str, launches: dict, cap: dict, wave: dict,
-                queues: dict) -> None:
-    """A path's kernels ran on it and agree with their plain versions."""
+def queue_checks(label: str, queues: dict) -> None:
+    """The traversal kernels agree with the plain walk on a path's extend,
+    shadow and AOV queues, and the accumulation with its plain version."""
     bad = [(q, gen) for q in ("extend", "connect", "aov")
            for gen in ("mono", "wave") if queues[q][gen]["mismatches"]]
     if bad or queues["accumulate"]["max_abs_err"] != 0.0:
         raise AssertionError(f"{label}: mismatches on {bad}")
+
+
+def path_checks(label: str, launches: dict, cap: dict, wave: dict,
+                queues: dict) -> None:
+    """A path's kernels ran on it and agree with their plain versions."""
+    queue_checks(label, queues)
     if not (launches["traverse"] > 0 and launches["accumulate"] > 0
             and cap["launches"]["traverse"] > 0
             and wave["traverse_wave"] > 0):
@@ -1987,6 +2011,341 @@ def fog_path(scene_host, cfg: RenderConfig, poses_run=(0, 1, 2),
                 queues=queues, card_vs_cpu=mad)
 
 
+# the camera modes of the sampling path, each eager at pose 0 (the crop: the
+# 960x540 centre of the 1920x1080 frame)
+CAMERA_MODES = {
+    "fisheye": dict(projection="fisheye", fisheye_fov_degrees=180.0),
+    "equirect": dict(projection="equirect"),
+    "ortho-bokeh": dict(projection="ortho", ortho_height=120.0,
+                        bokeh_blades=6, bokeh_rotation=15.0),
+    "crop-clamp": dict(crop=(480, 270, 960, 540), radiance_clamp=10.0),
+}
+
+
+def lens_camera(i: int):
+    """Pose i with a lens of radius 1 focused at 30 units: the polygonal
+    aperture shows only through a lens."""
+    cam = camera_for_pose(i)
+    cam.lens_radius, cam.focal_distance = 1.0, 30.0
+    return cam
+
+
+def sample_base_check(scene, tables, cfg: RenderConfig,
+                      steps: int = 6) -> dict:
+    """Sobol's pass counter after ``steps`` eager steps at pose 0: the
+    fresh rays generated (read from ``n_carried`` before each step) must
+    be sample_base * (pixels a pass) + start_position, and no carried
+    ray's sample index may pass sample_base + 1."""
+    ren = tr.Renderer(scene, dataclasses.replace(cfg, fuse_step_chains="off"),
+                      tables=tables)
+    generated = 0
+    for _ in range(steps):
+        generated += cfg.num_rays - int(ren.state.n_carried)
+        ren.step(camera_for_pose(0), 1)
+    st = ren.state
+    total = tr._scan_total(cfg)
+    counted = int(st.sample_base) * total + int(st.start_position)
+    top = int(st.sample_idx.max())
+    log(f"sobol bookkeeping after {steps} steps: {generated} fresh rays, "
+        f"sample_base {int(st.sample_base)} x {total} + start_position "
+        f"{int(st.start_position)} = {counted}; largest sample index {top}")
+    if counted != generated or top > int(st.sample_base) + 1:
+        raise AssertionError("Sobol's sample_base does not count the "
+                             "round-robin passes")
+    return dict(steps=steps, generated=generated,
+                sample_base=int(st.sample_base),
+                start_position=int(st.start_position), max_sample_idx=top)
+
+
+def moment2_at_step(ren, reps: int = 20) -> dict:
+    """The fused moment2 mode of ``accumulate_terminated`` on the queue of
+    the step just run (adaptive sampling or track_variance): accum and
+    moment2 bit for bit the plain version (two ``accumulate_plain``
+    calls) on the CPU; timed with the L2 evicted before each call against
+    the plain version and the library's two ``index_add_`` calls; the
+    kernel alone back to back as a side note."""
+    key, pend = step_queue(ren)
+    p = ren.cfg.num_pixels
+    n = key.shape[0]
+    acc0, m0 = ren.state.accum.clone(), ren.state.moment2.clone()
+    kc, pc = key.cpu(), pend.cpu()
+    want_a = kacc.accumulate_plain(acc0.cpu().clone(),
+                                   *kacc.terminated_updates(kc, pc, p))
+    want_m = kacc.accumulate_plain(m0.cpu().clone(),
+                                   *kacc.moment2_updates(kc, pc, p))
+    got_m = m0.clone()
+    got_a = kacc.accumulate_terminated(acc0.clone(), key, pend,
+                                       moment2=got_m).cpu()
+    if not (same_bits(got_a, want_a) and same_bits(got_m.cpu(), want_m)):
+        raise AssertionError("the moment2 mode differs from its plain "
+                             "version on the step's queue")
+    acc, m2 = acc0.clone(), m0.clone()
+
+    def fused():
+        return kacc.accumulate_terminated(acc, key, pend, moment2=m2)
+
+    def plain():
+        kacc.accumulate_plain(m2, *kacc.moment2_updates(key, pend, p))
+        return kacc.accumulate_plain(acc, *kacc.terminated_updates(key,
+                                                                   pend, p))
+
+    live, distinct = live_entries(key, p)
+    (pix, vals), (_, sq) = kacc.terminated_updates(key, pend, p), \
+        kacc.moment2_updates(key, pend, p)
+    pix_l, vals_l, sq_l = pix[:live], vals[:live], sq[:live]
+    lib_a, lib_m = acc0.clone(), m0.clone()
+
+    def library():
+        lib_a.index_add_(0, pix_l, vals_l)
+        return lib_m.index_add_(0, pix_l, sq_l)
+
+    out = dict(rays=n, max_abs_err=0.0, live=live, distinct=distinct,
+               ms=cuda_ms(fused, reps, cold=True),
+               kernel_ms_warm_l2=kernel_ms(fused, ACCUM_KERNELS),
+               plain_ms=cuda_ms(plain, reps, cold=True),
+               library_ms=cuda_ms(library, reps, cold=True))
+    out["bound_ms"], out["bound_by"] = accum_bound(n, live, distinct, 12,
+                                                   buffers=2)
+    log(f"step accumulate, moment2 mode: {live} of {n} entries below P on "
+        f"{distinct} pixels; accum and moment2 bit for bit the plain "
+        f"version; with the L2 evicted: fused {out['ms']:.4f} ms, plain "
+        f"(two accumulate_plain) {out['plain_ms']:.4f} ms, two index_add_ "
+        f"{out['library_ms']:.4f} ms; bound {out['bound_ms']:.4f} ms "
+        f"({out['bound_by']}); back to back, the buffers in the L2: kernel "
+        f"alone {fmt_ms(out['kernel_ms_warm_l2'])}")
+    return out
+
+
+def adaptive_run(scene, tables, cfg: RenderConfig, chunks: int = 4) -> dict:
+    """Adaptive sampling with ``track_variance``, captured, at pose 0:
+    ``chunks`` calls of ``adaptive_interval`` steps, one perm rebuild
+    after each, timed with CUDA events (the rebuilds inside); each perm
+    monotone and in range, the noise estimate falling from the second
+    chunk on, the steps replayed
+    and their accumulation the moment2 mode's launch; ``build_perm``
+    alone at full size."""
+    ren = tr.Renderer(scene, cfg, tables=tables)
+    reset_launches(ren)
+    cam = camera_for_pose(0)
+    k = cfg.adaptive_interval
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    ren.step(cam, 1)  # the capture's warm-up and the capture, untimed
+    perms, noise = [], []
+    a.record()
+    for i in range(chunks):
+        ren.step(cam, k - 1 if i == 0 else k)
+        perms.append(ren.state.pixel_perm.clone())
+        noise.append(adaptive_mod.mean_relative_error(ren.state.accum,
+                                                      ren.state.moment2))
+    b.record()
+    torch.cuda.synchronize()
+    steps = chunks * k
+    ms = a.elapsed_time(b) / (steps - 1)
+    p = cfg.num_pixels
+    noise = [float(x) for x in noise]
+    for perm in perms:
+        d = perm[1:] - perm[:-1]
+        if not (bool((d >= 0).all()) and int(perm.min()) >= 0
+                and int(perm.max()) < p):
+            raise AssertionError("an adaptive perm is not monotone in range")
+    if (torch.equal(perms[-1], adaptive_mod.identity_perm(p, DEV))
+            or ren._sched.rebuilds != chunks):
+        raise AssertionError(f"{ren._sched.rebuilds} perm rebuilds, "
+                             f"expected {chunks}")
+    # after the first chunk most pixels hold fewer than two paths and are
+    # left out of the estimate's mean: it falls from the second on
+    if not all(b < a for a, b in zip(noise[1:], noise[2:])):
+        raise AssertionError(f"the noise estimate did not fall: {noise}")
+    if ren.noise_estimate() != noise[-1]:
+        raise AssertionError("Renderer.noise_estimate() is not the mean "
+                             "relative error of its moments")
+    launches = read_launches(ren, keys=LAUNCH_KEYS + MOMENT2_KEYS)
+    check_replays(ren, steps)
+    if (launches["accumulate_moment2"] != steps or launches["accumulate"]
+            or launches["traverse"] != 2 * steps):
+        raise AssertionError(f"adaptive launches {launches} over {steps} "
+                             "steps")
+    phase = torch.tensor(0.5, device=DEV)
+    perm_ms = cuda_ms(lambda: adaptive_mod.build_perm(
+        ren.state.accum, ren.state.moment2, phase, cfg.adaptive_gamma), 5)
+    counts = torch.bincount(perms[-1].long(), minlength=p)
+    log(f"adaptive (interval {k}, track_variance, captured): {steps} steps "
+        f"{ms:.3f} ms/step with {chunks} rebuilds, build_perm alone "
+        f"{perm_ms:.3f} ms; noise estimate by rebuild "
+        f"{', '.join(f'{x:.5f}' for x in noise)}; the last perm visits "
+        f"{int((counts > 0).sum())} of {p} pixels, at most "
+        f"{int(counts.max())} times; launches {launches} "
+        f"({ren.replayed_steps} steps replayed)")
+    return dict(ren=ren, steps=steps, ms_per_step=ms, build_perm_ms=perm_ms,
+                noise=noise, rebuilds=ren._sched.rebuilds,
+                pixels_visited=int((counts > 0).sum()),
+                max_visits=int(counts.max()), launches=launches)
+
+
+def checkpoint_on_card(scene, tables, cfg: RenderConfig, first: int = 8,
+                       then: int = 4) -> dict:
+    """``first`` steps at pose 0, ``save_state`` to
+    ``build/chip_smoke/checkpoint.npz``, ``load_state`` into a fresh
+    Renderer, ``then`` steps: every RenderState field bit for bit the
+    state of ``first + then`` uninterrupted steps (renderers as ``cfg``
+    selects, captured by default)."""
+    cam = camera_for_pose(0)
+    whole = tr.Renderer(scene, cfg, tables=tables)
+    whole.step(cam, first + then)
+    ren = tr.Renderer(scene, cfg, tables=tables)
+    ren.step(cam, first)
+    TRACE_DIR.mkdir(parents=True, exist_ok=True)
+    path = TRACE_DIR / "checkpoint.npz"
+    t0 = time.perf_counter()
+    checkpoint.save_state(str(path), ren.state, {"steps": first})
+    save_s = time.perf_counter() - t0
+    resumed = tr.Renderer(scene, cfg, tables=tables)
+    t0 = time.perf_counter()
+    resumed.state, meta = checkpoint.load_state(str(path))
+    load_s = time.perf_counter() - t0
+    resumed.step(cam, then)
+    torch.cuda.synchronize()
+    if meta != {"steps": first} or not states_equal(resumed.state,
+                                                     whole.state):
+        raise AssertionError("the resumed render differs from the "
+                             "uninterrupted one")
+    mb = path.stat().st_size / 1e6
+    log(f"checkpoint on the card ({'captured' if whole.captured else 'eager'}"
+        f", sampler {cfg.sampler}, track_variance {cfg.track_variance}): "
+        f"{first} steps, save {save_s:.2f} s ({mb:.1f} MB .npz), load "
+        f"{load_s:.2f} s, {then} steps: bit for bit the {first + then} "
+        "uninterrupted steps")
+    return dict(first=first, then=then, save_s=save_s, load_s=load_s,
+                file_mb=mb, captured=whole.captured)
+
+
+def blur_flythrough(scene, tables, cfg: RenderConfig,
+                    n_frames: int = 20) -> dict:
+    """The interactive fly-through (``bench/interactive.py``) under motion
+    blur, captured and eager: ms a frame moving and still, the launches,
+    replays counted, which must be the steps' (with kernel normals on the
+    extend queue)."""
+    out = {}
+    for fuse in ("auto", "off"):
+        c = dataclasses.replace(cfg, fuse_step_chains=fuse)
+        reset_launches()
+        res = interactive.run_interactive(scene, c, n_frames=n_frames,
+                                          tables=tables)
+        ren = res.pop("renderer")
+        steps = 2 * (interactive.WARMUP_FRAMES + n_frames)
+        launches = read_launches(ren, keys=LAUNCH_KEYS + NORMALS_KEYS)
+        if launches["accumulate"] != steps \
+                or launches["traverse"] != 2 * steps \
+                or launches["traverse_normals"] != steps:
+            raise AssertionError(f"blurred fly-through {fuse}: launches "
+                                 f"{launches} over {steps} steps")
+        if ren.captured:
+            check_replays(ren, steps)
+        out[fuse] = dict(res, launches=launches, steps=steps,
+                         captured=ren.captured)
+        log(f"fly-through with motion_blur={c.motion_blur} fuse={fuse}: "
+            f"moving {res['moving']['mean_ms']:.3f} ms/frame (median "
+            f"{res['moving']['median_ms']:.3f}, "
+            f"{res['moving']['fps']:.1f} FPS), still "
+            f"{res['still']['mean_ms']:.3f} ms/frame; launches {launches}")
+        del ren
+    return out
+
+
+def sampling_path(scene_host, cfg: RenderConfig, poses_run=(0, 1, 2),
+                  preset: RenderConfig | None = None, fly_frames: int = 20,
+                  modes=None, small=None) -> dict:
+    """The rest of RenderConfig on the main scene at ``cfg``'s size:
+    Sobol with seed 7 (phase 3 eager and captured, the captured step bit
+    for bit the eager one, wave at pose 0, shade's split, the pass
+    counter, the kernels on its queues, a checkpoint's resume bit for
+    bit, the card against the CPU);
+    adaptive sampling with track_variance, captured (:func:`adaptive_run`,
+    its step bit for bit the eager one, the fused moment2 mode on its
+    step's queue); motion blur on the interactive preset (``preset``)
+    with kernel normals, its captured step bit for bit the eager one
+    through a pose change, and the fly-through captured and eager; and
+    the camera modes of :data:`CAMERA_MODES` (or ``modes``), each eager
+    at pose 0 with the kernels on its queues."""
+    cfg_s = dataclasses.replace(cfg, fuse_step_chains="off", sampler="sobol",
+                                seed=7)
+    ren = tr.Renderer(scene_host, cfg_s)
+    sd, tables = ren.scene, ren.tables
+    out = dict(launches={}, queues={})
+    # Sobol
+    out["sobol"], launches = phase3(ren, poses_run, "sobol-")
+    out["launches"]["sobol-eager"] = launches
+    out["shade"] = {"sobol": stage_kernels(
+        TRACE_DIR / "trace_sobol-mono_pose0.json", 2)}
+    log_stage("sobol", out["shade"]["sobol"])
+    ren_w = tr.Renderer(sd, dataclasses.replace(cfg_s,
+                                                packet_kernel_mode="wave"),
+                        tables=tables)
+    out["sobol_wave"], out["launches"]["sobol-wave"] = phase3(
+        ren_w, (0,), "sobol-")
+    del ren_w
+    cap = captured_step(sd, tables, dataclasses.replace(
+        cfg_s, fuse_step_chains="auto"), poses_run, chain=False,
+        label="sobol-")
+    compare_captured(out["sobol"], cap["poses"])
+    out["sobol_captured"] = cap["poses"]
+    out["launches"]["sobol-captured"] = cap["launches"]
+    out["queues"]["sobol"] = kernels_at_slice(ren, stream=False,
+                                              label="sobol")
+    queue_checks("sobol", out["queues"]["sobol"])
+    del ren
+    out["sobol_bookkeeping"] = sample_base_check(sd, tables, cfg_s)
+    out["checkpoint"] = checkpoint_on_card(sd, tables, dataclasses.replace(
+        cfg_s, fuse_step_chains="auto", track_variance="on"))
+    v0, v1, v2 = terrain(n_quads=48, towers=4)
+    out["card_vs_cpu"] = card_vs_cpu(small or Scene.from_triangles(v0, v1, v2),
+                                     cfg_s, "sobol")
+    # adaptive sampling with the second moments
+    cfg_a = dataclasses.replace(cfg, adaptive_sampling="on",
+                                adaptive_interval=4, track_variance="on")
+    cap = captured_step(sd, tables, cfg_a, (0,), chain=False,
+                        label="adaptive-")
+    out["adaptive_captured"] = cap["poses"]
+    out["launches"]["adaptive-captured"] = cap["launches"]
+    ad = adaptive_run(sd, tables, cfg_a)
+    ren = ad.pop("ren")
+    out["adaptive"] = ad
+    out["launches"]["adaptive"] = ad["launches"]
+    out["moment2_step_queue"] = moment2_at_step(ren)
+    out["queues"]["adaptive"] = kernels_at_slice(ren, stream=False,
+                                                 label="adaptive")
+    queue_checks("adaptive", out["queues"]["adaptive"])
+    del ren
+    # motion blur on the interactive preset, kernel normals on
+    pre = dataclasses.replace(preset or interactive_config(), motion_blur=0.5,
+                              use_kernel_normals="on")
+    cap = captured_step(sd, tables, pre, (0,), chain=False, label="blur-")
+    out["blur_captured"] = cap["poses"]
+    out["launches"]["blur-captured"] = cap["launches"]
+    out["blur_flythrough"] = blur_flythrough(sd, tables, pre, fly_frames)
+    ren = tr.Renderer(sd, dataclasses.replace(pre, fuse_step_chains="off"),
+                      tables=tables)
+    ren.step(camera_for_pose(1), 1)  # pose 0's rays lerp from pose 1
+    out["queues"]["blur"] = kernels_at_slice(ren, stream=False, label="blur")
+    queue_checks("blur", out["queues"]["blur"])
+    del ren
+    # the camera modes, eager at pose 0
+    out["modes"] = {}
+    for name, kw in (modes or CAMERA_MODES).items():
+        cam = lens_camera if name.endswith("bokeh") else camera_for_pose
+        ren = tr.Renderer(sd, dataclasses.replace(
+            cfg, fuse_step_chains="off", **kw), tables=tables)
+        poses, launches = phase3(ren, (0,), f"{name}-", camera=cam)
+        queues = kernels_at_slice(ren, stream=False, label=name,
+                                  camera=cam)
+        queue_checks(name, queues)
+        out["modes"][name] = dict(config=kw, poses=poses)
+        out["launches"][name] = launches
+        out["queues"][name] = queues
+        del ren
+    return out
+
+
 def light_table_mb(sd) -> float:
     """Device MB of the light tables."""
     return sum(getattr(sd, k).numel() * 4 for k in (
@@ -2076,6 +2435,8 @@ def main() -> int:
     mark("lights")
     fg = fog_path(scene_host, cfg)
     mark("fog")
+    smp = sampling_path(scene_host, cfg)
+    mark("sampling")
     del scene_host
     torch.cuda.empty_cache()
     tx = textures_path(cfg)
@@ -2109,7 +2470,9 @@ def main() -> int:
                     textures={q: queue_entry(tx["queues"][q], gen)
                               for q in queues},
                     fog={q: queue_entry(fg["queues"][q], gen)
-                         for q in queues})
+                         for q in queues},
+                    sampling={m: {q: queue_entry(smp["queues"][m][q], gen)
+                                  for q in queues} for m in smp["queues"]})
 
     def queue_entry(q, gen):
         return dict(ms=q[gen]["ms"], plain_ms=q["plain_ms"],
@@ -2163,6 +2526,13 @@ def main() -> int:
         path's run with the lights)."""
         return sum(path["launches"][r][key] for r in runs)
 
+    def sampling_launches(*keys):
+        """A kernel's launches on the sampling path, every run of it (the
+        blurred fly-throughs included), summed over ``keys``."""
+        runs = list(smp["launches"].values()) + [
+            f["launches"] for f in smp["blur_flythrough"].values()]
+        return sum(r.get(k, 0) for r in runs for k in keys)
+
     regs = build.registers()
     result = {"kernels": [
         {"name": "traverse", "route": "cuda",
@@ -2180,6 +2550,7 @@ def main() -> int:
                                             "captured"),
          "fog_launches": path_launches(fg, "traverse", "eager", "captured",
                                        "lights"),
+         "sampling_launches": sampling_launches("traverse"),
          "registers": {k: v for k, v in regs.items()
                        if k.startswith("traverse_kernel<")},
          **entry("mono"), **normals_entry("mono", "normals-on-auto")},
@@ -2194,6 +2565,7 @@ def main() -> int:
          "lights_launches": lights_launches("traverse_wave", "wave"),
          "textures_launches": path_launches(tx, "traverse_wave", "wave"),
          "fog_launches": path_launches(fg, "traverse_wave", "wave"),
+         "sampling_launches": sampling_launches("traverse_wave"),
          "registers": {k: v for k, v in regs.items()
                        if k.startswith("traverse_wave_kernel<")},
          **entry("wave"), **normals_entry("wave", "normals-on-wave-auto")},
@@ -2213,13 +2585,21 @@ def main() -> int:
                                             "captured", "wave"),
          "fog_launches": path_launches(fg, "accumulate", "eager", "captured",
                                        "wave", "lights"),
+         "sampling_launches": sampling_launches("accumulate",
+                                                "accumulate_moment2"),
+         "moment2_launches": sampling_launches("accumulate_moment2"),
+         "registers": {k: v for k, v in regs.items()
+                       if k.startswith("accum_kernel")},
          "max_abs_err": max(acc["max_abs_err"], at_step["max_abs_err"],
                             ld["queues"]["accumulate"]["max_abs_err"],
                             sf["queues"]["accumulate"]["max_abs_err"],
                             *(lt[c]["queues"]["accumulate"]["max_abs_err"]
                               for c in lt),
                             tx["queues"]["accumulate"]["max_abs_err"],
-                            fg["queues"]["accumulate"]["max_abs_err"]),
+                            fg["queues"]["accumulate"]["max_abs_err"],
+                            smp["moment2_step_queue"]["max_abs_err"],
+                            *(q["accumulate"]["max_abs_err"]
+                              for q in smp["queues"].values())),
          "ms": acc["ms"], "kernel_ms": acc["kernel_ms"],
          "plain_ms": acc["plain_ms"], "bound_ms": acc["bound_ms"],
          "bound_by": acc["bound_by"], "library_ms": acc["library_ms"],
@@ -2238,7 +2618,16 @@ def main() -> int:
          "lights_step_queue": {c: step_entry(lt[c]["queues"]["accumulate"])
                                for c in lt},
          "textures_step_queue": step_entry(tx["queues"]["accumulate"]),
-         "fog_step_queue": step_entry(fg["queues"]["accumulate"])},
+         "fog_step_queue": step_entry(fg["queues"]["accumulate"]),
+         "sampling_step_queue": step_entry(
+             smp["queues"]["sobol"]["accumulate"]),
+         # the fused moment2 mode (accum_kernel<3,true>) on the adaptive
+         # step's queue: the JAX step's second accumulate_sorted call
+         "moment2_replaces": "tyrant_tpu/ops/pallas/accum_kernel.py:99",
+         "moment2_step_queue": {
+             k: smp["moment2_step_queue"][k]
+             for k in ("ms", "kernel_ms_warm_l2", "plain_ms", "bound_ms",
+                       "bound_by", "library_ms", "live", "distinct")}},
         {"name": "stream", "route": "cuda",
          "source": "tyrant_tpu_torch/csrc/stream.cu",
          "replaces": "tyrant_tpu/ops/pallas/stream_kernel.py:105",
@@ -2251,7 +2640,7 @@ def main() -> int:
                     "card_vs_cpu_denoised_wave": mad_dn, "build_s": build_s,
                     "renderer_peak_mb": peak_mb, "loaded": ld,
                     "sphere_free": sf, "lights": lt, "captured": cap,
-                    "textures": tx, "fog": fg,
+                    "textures": tx, "fog": fg, "sampling": smp,
                     "preset_normals": nrm, "flythrough": fly,
                     "registers": regs}))
     log(gpu)

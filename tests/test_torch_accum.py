@@ -5,7 +5,9 @@ kernel's bf16 rounding of update values).  Sentinel entries must be
 ignored.  accumulate_terminated, the render step's call fed straight from
 its sort, against the same scatter on the updates the step used to build,
 on the run-head kernel's edge cases, and inside a render step bit for bit
-against accumulate_sorted on those updates."""
+against accumulate_sorted on those updates; its moment2 mode's plain
+version (the squared radiance into a second buffer) against the JAX
+step's CPU scatter of the second moments."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -173,3 +175,64 @@ def test_render_step_accumulates_as_before(monkeypatch):
     assert len(seen) == 4 and all(same for _, same in seen)
     assert all(live > 0 for live, _ in seen)
     assert float(ren.state.accum[:, 3].sum()) == sum(live for live, _ in seen)
+
+
+@pytest.mark.parametrize("name", list(accum_cases.CASES))
+def test_moment2_mode_matches_jax_scatter(name):
+    """The second-moment mode's plain version (two accumulate_plain calls
+    on the step's sorted keys) against the JAX step's CPU path: the
+    scatters of (p, 1) into accum and (p * p, 1) into moment2
+    (tyrant_tpu/render.py:2392-2406).  Counts exact and the two buffers'
+    counts equal, sums within rtol 1e-6 (XLA's scatter adds in its own
+    order); accumulate_terminated's accum bit for bit as without
+    moment2."""
+    accum, key, pend = accum_cases.make_case(name, seed=5)
+    moment2 = np.abs(accum_cases.make_case(name, seed=6)[0])
+    p = accum.shape[0]
+    sent = tacc.sentinel(p)
+    live = key < p
+    idx = np.where(live, np.minimum(key, sent), 0)
+    ones = np.ones((key.shape[0], 1), np.float32)
+    ps = jnp.asarray(pend)
+    want_a = np.asarray(jnp.asarray(accum).at[idx].add(jnp.where(
+        live[:, None], jnp.concatenate([ps, ones], 1), 0.0)))
+    want_m = np.asarray(jnp.asarray(moment2).at[idx].add(jnp.where(
+        live[:, None], jnp.concatenate([ps * ps, ones], 1), 0.0)))
+    m2 = torch.from_numpy(moment2.copy())
+    got = tacc.accumulate_terminated(torch.from_numpy(accum.copy()),
+                                     torch.from_numpy(key),
+                                     torch.from_numpy(pend), moment2=m2)
+    alone = tacc.accumulate_terminated(torch.from_numpy(accum.copy()),
+                                       torch.from_numpy(key),
+                                       torch.from_numpy(pend))
+    assert torch.equal(got.view(torch.int32), alone.view(torch.int32))
+    np.testing.assert_array_equal(got.numpy()[:, 3], want_a[:, 3])
+    np.testing.assert_array_equal(m2.numpy()[:, 3] - moment2[:, 3],
+                                  got.numpy()[:, 3] - accum[:, 3])
+    np.testing.assert_array_equal(m2.numpy()[:, 3], want_m[:, 3])
+    np.testing.assert_allclose(got.numpy()[:, :3], want_a[:, :3], rtol=1e-6,
+                               atol=1e-6)
+    np.testing.assert_allclose(m2.numpy()[:, :3], want_m[:, :3], rtol=1e-6,
+                               atol=1e-6)
+    if name == "all sentinel":
+        np.testing.assert_array_equal(m2.numpy(), moment2)
+    # the plain version: accumulate_sorted on the squared updates
+    m2b = tacc.accumulate_sorted(torch.from_numpy(moment2.copy()),
+                                 *tacc.moment2_updates(
+                                     torch.from_numpy(key),
+                                     torch.from_numpy(pend), p))
+    assert torch.equal(m2.view(torch.int32), m2b.view(torch.int32))
+    assert tacc.launches == 0 and tacc.launches_moment2 == 0
+
+
+def test_moment2_mode_checks_its_buffer():
+    accum, key, pend = (torch.from_numpy(x) for x in
+                        accum_cases.make_case("mixed", seed=4))
+    p = accum.shape[0]
+    with pytest.raises(ValueError, match="moment2"):
+        tacc.accumulate_terminated(accum, key, pend,
+                                   moment2=torch.zeros((p - 1, 4)))
+    with pytest.raises(ValueError, match="moment2"):
+        tacc.accumulate_terminated(accum, key, pend,
+                                   moment2=torch.zeros((p, 4),
+                                                       dtype=torch.float64))

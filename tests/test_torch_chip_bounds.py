@@ -42,6 +42,22 @@ def test_accum_bound_counts_keys_values_and_rows():
     assert ms == pytest.approx((2048 + 8192 + 96) / HBM * 1e3, rel=1e-12)
 
 
+def test_accum_bound_moment2_buffer():
+    # the moment2 mode: the same keys and 12-byte values, the 32 row bytes
+    # of each of the 50 pixels in both buffers (3,200), 11 operations a
+    # live entry: 404 + 128 + 1,200 + 3,200 = 4,932 bytes against 1,100
+    ms, by = chip_smoke.accum_bound(1000, 100, 50, 12, buffers=2)
+    assert by == "bytes"
+    assert ms == pytest.approx(4932 / HBM * 1e3, rel=1e-12)
+    # an adaptive step's queue at 1080p: 807,270 keys (3,229,080
+    # bytes) + 5,039 sectors for the 1,289,882-entry suffix (161,248) +
+    # 9,687,228 value bytes + 41,118,720 row bytes = 54,196,276 bytes
+    ms, by = chip_smoke.accum_bound(2_097_152, 807_269, 642_480, 12,
+                                    buffers=2)
+    assert by == "bytes"
+    assert ms == pytest.approx(54_196_276 / HBM * 1e3, rel=1e-12)
+
+
 def test_frontier_floor_writes_and_reads_each_pair_once():
     # 4 + 6 + 2 = 12 pairs of 12 bytes, each written and read: 288 bytes
     assert chip_smoke.frontier_floor_ms([4, 6, 2]) == pytest.approx(

@@ -5,8 +5,9 @@ main path's queues, the denoised display path eager and captured, the
 stream kernel's overflow, the equivalence gate, the pose harness, the
 loaded scene, the sphere-free scene, the captured step against the eager
 one, the normals output of both traversal kernels, the interactive
-fly-through, the lights path, the textures path and the fog path) at
-small sizes, so the
+fly-through, the lights path, the textures path, the fog path and the
+sampling path, with the fused moment2 mode of the accumulation) at small
+sizes, so the
 card's checks live in one place.  The kernels have no CPU mode, so
 these tests skip without a CUDA device.  This file imports no JAX, so it
 also runs where JAX is not installed:
@@ -561,6 +562,87 @@ def test_captured_textured_and_fog_steps_bit_equal(cuda, over):
                               n_blend=128, albedo_px=64, normal_px=64,
                               rough_px=32, leaf_px=32)
     sd = Scene.from_triangles(**kw).to_device(cuda)
+    cfg = small_config(96, 64, num_rays=8192, **over)
+    cap = chip_smoke.captured_step(sd, ktrav.PacketTables(sd.bvh),
+                                   dataclasses.replace(
+                                       cfg, fuse_step_chains="auto"),
+                                   poses_run=(0,), chain=False)
+    assert cap["equal_after_6"]
+    assert cap["launches"]["traverse"] == 2 * 14
+
+
+@pytest.mark.parametrize("name", list(accum_cases.CASES))
+def test_moment2_mode_matches_plain(cuda, name):
+    """The fused moment2 mode (accum_kernel<3,true>) on the run-head edge
+    cases: accum and moment2 bit for bit the plain version's two
+    accumulate_plain calls on the CPU, one launch counted as a moment2
+    launch."""
+    accum, key, pend = (torch.from_numpy(x) for x in
+                        accum_cases.make_case(name, seed=12))
+    moment2 = torch.from_numpy(np.abs(accum_cases.make_case(name,
+                                                            seed=13)[0]))
+    p = accum.shape[0]
+    want_a = kacc.accumulate_plain(accum.clone(),
+                                   *kacc.terminated_updates(key, pend, p))
+    want_m = kacc.accumulate_plain(moment2.clone(),
+                                   *kacc.moment2_updates(key, pend, p))
+    before = kacc.launches, kacc.launches_moment2
+    m2 = moment2.to(cuda)
+    got_a = kacc.accumulate_terminated(accum.to(cuda), key.to(cuda),
+                                       pend.to(cuda), moment2=m2).cpu()
+    torch.cuda.synchronize()
+    assert (kacc.launches, kacc.launches_moment2) == (before[0],
+                                                      before[1] + 1)
+    assert chip_smoke.same_bits(got_a, want_a)
+    assert chip_smoke.same_bits(m2.cpu(), want_m)
+
+
+SMALL_MODES = {**{k: v for k, v in chip_smoke.CAMERA_MODES.items()
+                  if k != "crop-clamp"},
+               "crop-clamp": dict(crop=(24, 16, 48, 32), radiance_clamp=10.0)}
+
+
+def test_sampling_path_at_small_size(cuda):
+    """chip_smoke's sampling path at a small size: Sobol eager, captured
+    (bit for bit the eager step) and wave, its pass counter, a checkpoint
+    saved after 8 captured steps and resumed bit for bit, adaptive
+    sampling with track_variance captured (4 rebuilds, the noise estimate
+    falling, the fused moment2 mode bit for bit on its step's queue),
+    motion blur on a small preset captured and eager, the camera modes;
+    the kernels against the plain walk on every run's queues."""
+    cfg = small_config(width=96, height=64, num_rays=8192)
+    host = Scene.from_triangles(*terrain(n_quads=32, towers=3))
+    smp = chip_smoke.sampling_path(
+        host, cfg, poses_run=(0,),
+        preset=small_config(width=96, height=64, num_rays=4096),
+        fly_frames=4, modes=SMALL_MODES)
+    for run, queues in smp["queues"].items():
+        for q in ("extend", "connect", "aov"):
+            for gen in ("mono", "wave"):
+                assert queues[q][gen]["mismatches"] == 0, (run, q, gen)
+    assert smp["moment2_step_queue"]["max_abs_err"] == 0.0
+    assert smp["launches"]["adaptive"]["accumulate_moment2"] == 16
+    assert smp["launches"]["sobol-captured"]["traverse"] == 2 * 14
+    assert smp["adaptive"]["rebuilds"] == 4
+    assert smp["checkpoint"]["captured"]  # resumed bit for bit, captured
+    assert smp["card_vs_cpu"] < 0.03
+    assert set(smp["modes"]) == set(SMALL_MODES)
+
+
+@pytest.mark.parametrize("over", [
+    dict(sampler="sobol", seed=7), dict(sampler="sobol", mis="on"),
+    dict(adaptive_sampling="on", adaptive_interval=2, track_variance="on"),
+    dict(motion_blur=0.5), dict(motion_blur=1.0, projection="ortho",
+                                ortho_height=60.0, bokeh_blades=5),
+    dict(projection="fisheye"), dict(projection="equirect"),
+    dict(crop=(16, 8, 48, 40), radiance_clamp=2.0)])
+def test_captured_step_bit_equal_under_new_fields(cuda, over):
+    """The captured step bit for bit the eager one on every RenderState
+    field after 6 steps with a pose and a sun change between, under each
+    field of this slice (motion blur's previous-pose buffer and the
+    adaptive rebuild between replays among them)."""
+    import dataclasses
+    sd = Scene.from_triangles(*terrain(n_quads=32, towers=3)).to_device(cuda)
     cfg = small_config(96, 64, num_rays=8192, **over)
     cap = chip_smoke.captured_step(sd, ktrav.PacketTables(sd.bvh),
                                    dataclasses.replace(

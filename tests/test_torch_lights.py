@@ -543,8 +543,9 @@ def _pixel_world_points(ss=1, cam_z=CAM_Z, size=DW):
     q = np.arange(w * h)
     ni = ((q % w) - ss + 0.5) / w - 0.5
     nj = (h - (q // w) + ss - 0.5) / h - 0.5
-    d = tr._primary_dirs(cam, torch.from_numpy(ni.astype(np.float32)),
-                         torch.from_numpy(nj.astype(np.float32)))
+    d, _, _ = tr._primary_dirs(_dcfg(size=size), cam,
+                               torch.from_numpy(ni.astype(np.float32)),
+                               torch.from_numpy(nj.astype(np.float32)))
     d = d.numpy().astype(np.float64)
     o = cam.position.numpy().astype(np.float64)[None]
     return (o - (o[:, 2] / d[:, 2])[:, None] * d).reshape(h, w, 3)

@@ -1,7 +1,7 @@
 """The port's render path against the JAX package on the CPU: raygen from
 the same counters, one step from a captured JAX state carried over through
 interop, the whole slice against the stored golden render and against the
-JAX Renderer, and the refusal of unported RenderConfig fields."""
+JAX Renderer, and every RenderConfig field accepted."""
 
 import dataclasses
 
@@ -125,22 +125,36 @@ def test_terrain_matches_jax_renderer():
     ("bokeh_rotation", 0.3), ("projection", "fisheye"),
     ("motion_blur", 0.5), ("crop", (0, 0, 8, 8)), ("bokeh_blades", 6),
     ("ortho_height", 20.0), ("radiance_clamp", 4.0), ("seed", 3),
-    ("adaptive_interval", 8), ("fisheye_fov_degrees", 120.0)])
+    ("adaptive_interval", 8), ("fisheye_fov_degrees", 120.0),
+    ("adaptive_gamma", 0.5)])
 def test_unported_config_fields_raise(field, value):
-    """Unported fields raise, naming themselves; the fog fields, once
-    among them, now build a fog Renderer that steps (the name is kept)."""
+    """Every field once refused here is ported: check_config accepts it,
+    and a Renderer under it (with the fields it works with: fog's slab, a
+    lens for the bokeh, the projection of its size, adaptive sampling for
+    its interval and gamma) builds and steps through a pose change (the
+    name is kept)."""
     cfg = dataclasses.replace(small_config(16, 16, 1024), **{field: value})
-    if field in ("fog", "fog_falloff"):
-        cfg = dataclasses.replace(cfg, fog="on", fog_z_min=-20.0,
-                                  fog_z_max=60.0)
-        r = tr.Renderer(Scene.load(None), cfg, device="cpu")
-        assert tr._fog_on(r.cfg) and getattr(r.cfg, field) == value
-        r.step(_pose(Camera), 2)
-        assert torch.isfinite(r.state.accum).all()
-        assert float(r.state.accum[:, 3].sum()) > 0
-        return
-    with pytest.raises(ValueError, match=field):
-        tr.Renderer(Scene.load(None), cfg, device="cpu")
+    with_ = {"fog": dict(fog="on", fog_z_min=-20.0, fog_z_max=60.0),
+             "fog_falloff": dict(fog="on", fog_z_min=-20.0, fog_z_max=60.0),
+             "fisheye_fov_degrees": dict(projection="fisheye"),
+             "ortho_height": dict(projection="ortho"),
+             "adaptive_interval": dict(adaptive_sampling="on"),
+             "adaptive_gamma": dict(adaptive_sampling="on",
+                                    adaptive_interval=1)}
+    cfg = dataclasses.replace(cfg, **with_.get(field, {}))
+    tr.check_config(cfg)
+    r = tr.Renderer(Scene.load(None), cfg, device="cpu")
+    assert getattr(r.cfg, field) == value
+    if field == "fog":
+        assert tr._fog_on(r.cfg)
+    cam = _pose(Camera, lens=2.0 if field.startswith("bokeh") else 0.0)
+    r.step(cam, 2)
+    cam.horizontal_angle += 0.05
+    r.step(cam, 2)
+    assert torch.isfinite(r.state.accum).all()
+    assert float(r.state.accum[:, 3].sum()) > 0
+    if tr._moments(cfg):
+        assert r.noise_estimate() > 0
 
 
 def test_pose_and_sun_changes_reset_accumulation():

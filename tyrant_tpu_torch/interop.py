@@ -31,7 +31,15 @@ SCENE_FLAGS = ("smooth_normals", "has_ggx", "has_rrefr", "has_var_ior",
 SCENE_AUX = ("n_tri_lights", "n_delta_lights", "env_meta", "tex_meta")
 STATE_FIELDS = ("accum", "origin", "direction", "direct", "pending", "pixel",
                 "bounces", "last_specular", "n_carried", "start_position",
-                "frame", "shadow_rays", "bsdf_pdf")
+                "frame", "shadow_rays", "bsdf_pdf", "moment2", "pixel_perm",
+                "sample_base", "sample_idx")
+# the port's dtype of each RenderState field that is not float32: the JAX
+# package's uint32 counters and Sobol indices are int64 here
+STATE_DTYPES = dict(pixel=torch.int32, bounces=torch.int32,
+                    last_specular=torch.bool, n_carried=torch.int64,
+                    start_position=torch.int64, frame=torch.int64,
+                    shadow_rays=torch.int64, pixel_perm=torch.int32,
+                    sample_base=torch.int64, sample_idx=torch.int64)
 
 
 def scene_from_numpy(leaves: Mapping[str, np.ndarray], rows: np.ndarray,
@@ -71,14 +79,15 @@ def scene_from_numpy(leaves: Mapping[str, np.ndarray], rows: np.ndarray,
 
 
 def state_from_numpy(fields: Mapping[str, np.ndarray], device) -> RenderState:
-    """``fields``: the RenderState fields named in STATE_FIELDS."""
-    dtypes = dict(pixel=torch.int32, bounces=torch.int32,
-                  last_specular=torch.bool, n_carried=torch.int64,
-                  start_position=torch.int64, frame=torch.int64,
-                  shadow_rays=torch.int64)
-    return RenderState(**{
-        k: torch.as_tensor(np.array(fields[k]), device=device)
-        .to(dtypes.get(k, torch.float32)) for k in STATE_FIELDS})
+    """``fields``: the RenderState fields named in STATE_FIELDS, in the JAX
+    package's dtypes or the port's."""
+    def tensor(k):
+        a = np.array(fields[k])
+        if a.dtype == np.uint32:  # torch's uint32 lacks most ops
+            a = a.astype(np.int64)
+        return torch.as_tensor(a, device=device).to(
+            STATE_DTYPES.get(k, torch.float32))
+    return RenderState(**{k: tensor(k) for k in STATE_FIELDS})
 
 
 def camera_from_numpy(position, direction, right, up, focal_distance,

@@ -11,6 +11,7 @@ _COUNTERS = {"traverse": ("traverse", "launches"),
              "traverse_normals": ("traverse", "launches_normals"),
              "traverse_wave_normals": ("traverse", "launches_wave_normals"),
              "accumulate": ("accum", "launches"),
+             "accumulate_moment2": ("accum", "launches_moment2"),
              "stream": ("stream", "launches")}
 
 

@@ -6,10 +6,12 @@ PLACE (the JAX function returns a new buffer) and returns it.  Entries at
 or above P (the surviving rays of a step, keyed from ``sentinel(P)`` up)
 are ignored.  ``accumulate_terminated`` is the render step's call: the
 same kernel fed straight from the step's sort, the sorted key and the
-pending radiance, with the path count of 1 implied.  Unlike the TPU
-kernel, the update values are added in float32 without a bf16 rounding,
-in sorted order, so the CUDA kernel equals a sequential scatter bit for
-bit.
+pending radiance, with the path count of 1 implied, and with
+``moment2`` the squared radiance and the count into a second buffer in
+the same launch (the JAX step's second ``accumulate_sorted`` call for
+adaptive sampling and ``track_variance``).  Unlike the TPU kernel, the
+update values are added in float32 without a bf16 rounding, in sorted
+order, so the CUDA kernel equals a sequential scatter bit for bit.
 """
 
 from __future__ import annotations
@@ -20,8 +22,10 @@ from . import build
 
 TILE_PIX = 2048  # the JAX kernel's tile; sets the sentinel value
 
-# kernel launches since the last reset; plain-version calls are not counted
+# kernel launches since the last reset, without and with the moment2 mode;
+# plain-version calls are not counted
 launches = 0
+launches_moment2 = 0
 
 
 def sentinel(p: int) -> int:
@@ -52,18 +56,32 @@ def terminated_updates(key, pend, p: int):
     return torch.clamp(key, max=sent).contiguous(), vals.contiguous()
 
 
-def accumulate_terminated(accum, key, pend):
+def moment2_updates(key, pend, p: int):
+    """(upd_pix, upd_sq): the second-moment flush's updates, (pend *
+    pend, 1) in float32 where the key is below the sentinel."""
+    return terminated_updates(key, pend * pend, p)
+
+
+def accumulate_terminated(accum, key, pend, moment2=None):
     """accum [P, 4] f32 += (pend, 1) of every entry whose key is below P,
     in place: the accumulate stage of a render step, fed straight from its
-    sort.  key: [N] i32 ascending; pend: [N, 3] f32.  Bit for bit
-    ``accumulate_sorted(accum, *terminated_updates(key, pend, P))``, which
-    is its plain version.  Returns accum."""
+    sort.  key: [N] i32 ascending; pend: [N, 3] f32.  With ``moment2``
+    ([P, 4] f32) also moment2 += (pend * pend, 1) in the same launch.
+    Bit for bit ``accumulate_sorted(accum, *terminated_updates(key, pend,
+    P))`` and, with ``moment2``, ``accumulate_sorted(moment2,
+    *moment2_updates(key, pend, P))``, which are its plain version.
+    Returns accum."""
     p, n = accum.shape[0], key.shape[0]
-    _check(accum, (("key", key, torch.int32, (n,)),
-                   ("pend", pend, torch.float32, (n, 3))))
+    args = [("key", key, torch.int32, (n,)),
+            ("pend", pend, torch.float32, (n, 3))]
+    if moment2 is not None:
+        args.append(("moment2", moment2, torch.float32, (p, 4)))
+    _check(accum, args)
     if accum.device.type == "cpu":
+        if moment2 is not None:
+            accumulate_plain(moment2, *moment2_updates(key, pend, p))
         return accumulate_plain(accum, *terminated_updates(key, pend, p))
-    return _launch(accum, key, pend, 3)
+    return _launch(accum, key, pend, 3, moment2)
 
 
 def _check(accum, args) -> None:
@@ -93,13 +111,17 @@ def accumulate_sorted(accum, upd_pix, upd_vals):
     return _launch(accum, upd_pix, upd_vals, 4)
 
 
-def _launch(accum, key, vals, width: int):
-    global launches
+def _launch(accum, key, vals, width: int, moment2=None):
+    global launches, launches_moment2
     lib = build.load()
     stream = torch.cuda.current_stream(accum.device).cuda_stream
     err = lib.tyrant_accumulate(accum.data_ptr(), key.data_ptr(),
                                 vals.data_ptr(), key.shape[0], accum.shape[0],
-                                width, stream)
+                                width, None if moment2 is None
+                                else moment2.data_ptr(), stream)
     build.check(lib, err, "tyrant_accumulate launch")
-    launches += 1
+    if moment2 is None:
+        launches += 1
+    else:
+        launches_moment2 += 1
     return accum

@@ -99,17 +99,19 @@ def _compile(out: Path) -> None:
 
 def _kernel_name(mangled: str) -> str:
     """A kernel's readable name from its mangled one: the innermost name
-    and its bool template arguments, as in ``traverse_kernel<true,false>``."""
+    and its bool and int template arguments, as in
+    ``traverse_kernel<true,false>`` or ``accum_kernel<3,true>``."""
     s = mangled[3:] if mangled.startswith("_ZN") else mangled[2:]
     name = mangled
     while (m := re.match(r"\d+", s)):
         k = int(m.group())
         name, s = s[m.end():m.end() + k], s[m.end() + k:]
-    args = re.match(r"I((?:Lb[01]E)+)E", s)
+    args = re.match(r"I((?:L[bi]\d+E)+)E", s)
     if not args:
         return name
-    flags = re.findall(r"Lb([01])E", args.group(1))
-    return f"{name}<{','.join('true' if f == '1' else 'false' for f in flags)}>"
+    vals = [v if t == "i" else ("true" if v == "1" else "false")
+            for t, v in re.findall(r"L([bi])(\d+)E", args.group(1))]
+    return f"{name}<{','.join(vals)}>"
 
 
 def registers(path: Path | None = None) -> dict[str, dict]:
@@ -161,7 +163,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     for fn in (lib.tyrant_traverse, lib.tyrant_traverse_wave):
         fn.argtypes = [p, i, p, p, p, p, p, p, p, i, i, p]
         fn.restype = i
-    lib.tyrant_accumulate.argtypes = [p, p, p, i, i, i, p]
+    lib.tyrant_accumulate.argtypes = [p, p, p, i, i, i, p, p]
     lib.tyrant_accumulate.restype = i
     lib.tyrant_stream.argtypes = [p, i, p, p, p, p, p, p, i, p, p, p, i, p,
                                   i, p, p, p]

@@ -24,12 +24,10 @@ def _u32(p):
     return int(p) & _MASK
 
 
-def seed_from(*parts) -> torch.Tensor:
-    """A well-mixed uint32 seed (as int64) from integer components.  The
-    hash runs on Python ints up to the first tensor component, on int64
-    tensors after it: the same exact integer arithmetic either way."""
-    like = next((p for p in parts if isinstance(p, torch.Tensor)), None)
-    h = _GOLDEN
+def _fold(h, parts):
+    """The hash state after ``parts``, from the state ``h``.  The hash runs
+    on Python ints up to the first tensor component, on int64 tensors after
+    it: the same exact integer arithmetic either way."""
     for p in parts:
         p = _u32(p)
         h = ((p + _GOLDEN + ((h << 6) & _MASK) + (h >> 2)) & _MASK) ^ h
@@ -39,6 +37,22 @@ def seed_from(*parts) -> torch.Tensor:
         h = h ^ (h >> 4)
         h = (h * 0x27D4EB2D) & _MASK
         h = h ^ (h >> 15)
+    return h
+
+
+def seed_prefix(*parts):
+    """The hash state of :func:`seed_from` after its first ``parts``: a
+    family of seeds that share them (``seed_from(*rest, prefix=...)``)
+    hashes them once."""
+    return _fold(_GOLDEN, parts)
+
+
+def seed_from(*parts, prefix=_GOLDEN) -> torch.Tensor:
+    """A well-mixed uint32 seed (as int64) from integer components, after
+    the hash state ``prefix`` of :func:`seed_prefix` when given."""
+    like = next((p for p in (prefix, *parts)
+                 if isinstance(p, torch.Tensor)), None)
+    h = _fold(prefix, parts)
     if not isinstance(h, torch.Tensor):
         h = torch.tensor(h, dtype=torch.int64,
                          device=None if like is None else like.device)

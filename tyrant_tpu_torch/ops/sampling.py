@@ -65,18 +65,44 @@ def concentric_sample_disk(u):
     return torch.where(degenerate[..., None], torch.zeros_like(pt), pt)
 
 
+def polygon_sample_disk(u, blades: int, rotation: float = 0.0):
+    """[0, 1]^2 onto a regular ``blades``-gon inscribed in the unit disk,
+    uniformly (a polygonal aperture; blades >= 3): the sector from u0's
+    high part, the point in its triangle from (u0's remainder, u1) with
+    the fold; ``rotation`` in radians."""
+    nb = float(blades)
+    u0, u1 = u[..., 0], u[..., 1]
+    k = torch.clamp((u0 * nb).to(torch.int32), max=blades - 1)
+    a = u0 * nb - k.to(torch.float32)
+    b = u1
+    flip = a + b > 1.0
+    a = torch.where(flip, 1.0 - a, a)
+    b = torch.where(flip, 1.0 - b, b)
+    t0 = (2.0 * PI / nb) * k.to(torch.float32) + rotation
+    t1 = t0 + 2.0 * PI / nb
+    v0 = torch.stack([torch.cos(t0), torch.sin(t0)], -1)
+    v1 = torch.stack([torch.cos(t1), torch.sin(t1)], -1)
+    return a[..., None] * v0 + b[..., None] * v1
+
+
 def cone_sample(direction, extent, seed):
     """Uniform sample inside a cone around ``direction`` (sun NEE).
     Returns (new_seed, sample_direction)."""
     seed, rx = rng.random_float2(seed)
     seed, ry = rng.random_float2(seed)
+    return seed, cone_sample_from_uniforms(direction, extent, rx, ry)
+
+
+def cone_sample_from_uniforms(direction, extent, rx, ry):
+    """The mapping of :func:`cone_sample` from two uniforms (the Sobol
+    draws' call sites)."""
     d = normalize(direction)
     o1 = normalize(ortho(d))
     o2 = normalize(cross(d, o1))
     phi = rx * 2.0 * PI
     z = 1.0 - ry * extent
     oneminus = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
-    return seed, (torch.cos(phi) * oneminus)[..., None] * o1 \
+    return (torch.cos(phi) * oneminus)[..., None] * o1 \
         + (torch.sin(phi) * oneminus)[..., None] * o2 \
         + z[..., None] * d
 
@@ -142,13 +168,19 @@ def cosine_hemisphere_sample(normal, seed):
     Returns (new_seed, direction)."""
     seed, r1u = rng.random_float(seed)
     seed, r2 = rng.random_float(seed)
+    return seed, cosine_hemisphere_from_uniforms(normal, r1u, r2)
+
+
+def cosine_hemisphere_from_uniforms(normal, r1u, r2):
+    """The mapping of :func:`cosine_hemisphere_sample` from two
+    uniforms."""
     r1 = 2.0 * PI * r1u
     r2s = torch.sqrt(r2)
     u, v = orthonormal_basis(normal)
     d = u * (torch.cos(r1) * r2s)[..., None] \
         + v * (torch.sin(r1) * r2s)[..., None] \
         + normal * torch.sqrt(torch.clamp(1.0 - r2, min=0.0))[..., None]
-    return seed, normalize(d)
+    return normalize(d)
 
 
 def phong_lobe_sample(w, phong_exponent, seed):

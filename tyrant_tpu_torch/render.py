@@ -9,8 +9,12 @@ multiple importance sampling (``mis``) with environment next-event
 estimation), textured surfaces (albedo with alpha cutout and stochastic
 blend, tangent-space normal maps, roughness and metalness maps, the three
 wrap modes, ``texture_filter`` nearest, bilinear or trilinear over the
-mip pyramid) and height fog (``fog``: a slab of exponential-height
-density with Henyey-Greenstein scattering).
+mip pyramid), height fog (``fog``: a slab of exponential-height
+density with Henyey-Greenstein scattering) and the rest of RenderConfig:
+the Sobol sampler (``sampler``, ``seed``), the fisheye, equirect and
+orthographic projections, the polygonal aperture, motion blur, the crop
+window, the radiance clamp, adaptive sampling and the second moments
+(``track_variance``).
 
 One :func:`render_step` tops up the fixed-size ray queue with camera rays
 (raygen), finds every ray's closest hit (extend), shades it with a BSDF
@@ -39,38 +43,44 @@ Every material, light, texture and scene term is gated in Python on the
 scene's flags and counts (``SceneData.has_ggx``, ``has_rrefr``,
 ``has_var_ior``, ``smooth_normals``, the texture gates, no spheres,
 ``light_indices``, ``n_tri_lights``, ``n_delta_lights``, ``has_envmap``)
-and on ``cfg.dispersion``, ``cfg.mis`` and ``cfg.fog``, as the JAX
-package gates them at trace time, so a scene
-without them issues the same device operations as the main path.  Every
-uniform is drawn in the JAX package's order, from the same streams.
+and on the config (``dispersion``, ``mis``, ``fog``, ``sampler``,
+``projection``, ``motion_blur``, ...), as the JAX package gates them at
+trace time, so a scene without them issues the same device operations as
+the main path.  Every uniform is drawn in the JAX package's order, from
+the same streams.
 
 State lives in tensors on one device.  Unlike the JAX package, the step
-updates ``state.accum`` in place (the JAX Renderer donates its state).
+updates ``state.accum`` (and ``state.moment2``) in place (the JAX
+Renderer donates its state).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
+from . import adaptive as adaptive_mod
 from . import sky as skymod
 from .camera import Camera, CameraParams
 from .config import EPSILON, INV_PI, PI, VERY_FAR, RenderConfig
 from .denoise import atrous_denoise
 from .device import resolve
-from .ops import kernels, rng
+from .ops import kernels, rng, sobol
 from .ops.intersect import intersect_spheres, ray_sphere
 from .ops.kernels.accum import accumulate_terminated, sentinel
 from .ops.kernels.traverse import (PacketTables, any_hit_packets,
                                    closest_hit_packets)
-from .ops.sampling import (concentric_sample_disk, cone_sample, cross,
+from .ops.sampling import (concentric_sample_disk, cone_sample,
+                           cone_sample_from_uniforms, cross,
+                           cosine_hemisphere_from_uniforms,
                            cosine_hemisphere_sample, dot, ggx_d_vec, ggx_g1,
                            ggx_vndf_sample_from_uniforms, hg_phase,
                            hg_sample_from_uniforms, normalize,
-                           phong_lobe_sample, reflect,
+                           phong_lobe_sample, polygon_sample_disk, reflect,
                            sphere_surface_from_uniforms,
                            sphere_surface_sample,
                            triangle_sample_from_uniforms)
@@ -97,7 +107,12 @@ _PORTED_FIELDS = {"width", "height", "num_rays", "max_bounces", "epsilon",
                   "bloom_radius", "dispersion", "use_kernel_normals",
                   "fuse_step_chains", "mis", "light_sampling",
                   "texture_filter", "fog", "fog_sigma_s", "fog_sigma_a",
-                  "fog_g", "fog_z_min", "fog_z_max", "fog_falloff"}
+                  "fog_g", "fog_z_min", "fog_z_max", "fog_falloff",
+                  "sampler", "seed", "projection", "fisheye_fov_degrees",
+                  "ortho_height", "bokeh_blades", "bokeh_rotation",
+                  "motion_blur", "crop", "radiance_clamp",
+                  "adaptive_sampling", "adaptive_interval", "adaptive_gamma",
+                  "track_variance"}
 _IGNORED_SELECTORS = {"use_packet_kernel", "use_accum_kernel",
                       "adaptive_connect", "adaptive_connect_frac"}
 
@@ -137,6 +152,21 @@ class RenderState:
     # (the MIS balance weight at its emitter or sky hit); [1] ones when
     # cfg.mis is "off"
     bsdf_pdf: torch.Tensor
+    # [P, 4] per-pixel sums of the squared radiance and the path count
+    # (adaptive sampling and track_variance), else [1, 4] zeros
+    moment2: torch.Tensor
+    # [P] i32 raygen visit order under adaptive sampling, else [1]
+    pixel_perm: torch.Tensor
+    # Sobol: the round-robin passes raygen has completed (a pixel's sample
+    # index is this plus the scan's wrap count) and each carried ray's own
+    # sample index [N] (u32 values as int64), else [1]
+    sample_base: torch.Tensor
+    sample_idx: torch.Tensor
+
+
+def _moments(cfg: RenderConfig) -> bool:
+    """Whether the step flushes the second moments."""
+    return cfg.adaptive_sampling == "on" or cfg.track_variance == "on"
 
 
 def init_state(cfg: RenderConfig, device) -> RenderState:
@@ -144,6 +174,7 @@ def init_state(cfg: RenderConfig, device) -> RenderState:
 
     def scalar(v):
         return torch.tensor(v, dtype=torch.int64, device=device)
+    adaptive = cfg.adaptive_sampling == "on"
     return RenderState(
         accum=torch.zeros((p, 4), dtype=torch.float32, device=device),
         origin=torch.zeros((n, 3), dtype=torch.float32, device=device),
@@ -157,35 +188,137 @@ def init_state(cfg: RenderConfig, device) -> RenderState:
         frame=scalar(1),  # never 0: it keys the RNG
         shadow_rays=scalar(0),
         bsdf_pdf=torch.ones((n if cfg.mis == "on" else 1,),
-                            dtype=torch.float32, device=device))
+                            dtype=torch.float32, device=device),
+        moment2=torch.zeros((p if _moments(cfg) else 1, 4),
+                            dtype=torch.float32, device=device),
+        pixel_perm=(adaptive_mod.identity_perm(p, device) if adaptive
+                    else torch.zeros((1,), dtype=torch.int32,
+                                     device=device)),
+        sample_base=scalar(0),
+        sample_idx=torch.zeros((n if cfg.sampler == "sobol" else 1,),
+                               dtype=torch.int64, device=device))
 
 
 def reset_accumulation(state: RenderState) -> RenderState:
-    """Camera or sun moved: zero the accumulation buffer and drop the
-    carried rays."""
-    return dataclasses.replace(state, accum=torch.zeros_like(state.accum),
-                               n_carried=torch.zeros_like(state.n_carried))
+    """Camera or sun moved: zero the accumulation buffer and the second
+    moments, drop the carried rays, put an adaptive visit order back to
+    the identity and restart every pixel's Sobol sequence."""
+    perm = state.pixel_perm
+    if perm.shape[0] > 1:
+        perm = adaptive_mod.identity_perm(perm.shape[0], perm.device)
+    return dataclasses.replace(
+        state, accum=torch.zeros_like(state.accum),
+        moment2=torch.zeros_like(state.moment2), pixel_perm=perm,
+        sample_base=torch.zeros_like(state.sample_base),
+        n_carried=torch.zeros_like(state.n_carried))
 
 
 # --------------------------------------------------------------------------
 # raygen
 # --------------------------------------------------------------------------
 
-def _primary_dirs(camera: CameraParams, ni, nj):
-    """Perspective primary directions from image-plane coordinates."""
-    return normalize(camera.direction[None] + ni[:, None] * camera.right[None]
-                     + nj[:, None] * camera.up[None])
+def _rows(v):
+    """A camera field [3] as [1, 3]; per-ray fields [n, 3] unchanged."""
+    return v if v.ndim == 2 else v[None]
 
 
-def _raygen(cfg: RenderConfig, camera: CameraParams, start_position, frame):
+def _primary_dirs(cfg: RenderConfig, camera, ni, nj):
+    """Image-plane coordinates (``ni`` in [-0.5, 0.5) left to right,
+    ``nj`` bottom to top) to primary directions under ``cfg.projection``.
+    Returns (dir [n, 3], origin offset [n, 3] or None, live [n] or None):
+    the orthographic camera shifts the ray's start off the pinhole, and
+    the fisheye marks the rays inside its image circle (those outside
+    render black).  "perspective" is the reference's basis (its scale in
+    camera.right/up); the other modes use the unit basis.  The camera's
+    fields may be [3] or, under motion blur, [n, 3] (a pose a ray)."""
+    cdir, cright, cup = _rows(camera.direction), _rows(camera.right), \
+        _rows(camera.up)
+    if cfg.projection == "perspective":
+        return normalize(cdir + ni[:, None] * cright + nj[:, None] * cup), \
+            None, None
+    # right/up carry the perspective's 1.5 * aspect scale: the unit frame
+    ru = normalize(cright)
+    uu = normalize(cup)
+    fwd = cdir
+    aspect = cfg.width / cfg.height
+    if cfg.projection == "fisheye":
+        # equidistant: the angle from the axis is linear in the radius of
+        # the image circle, which is inscribed in the image height
+        u = 2.0 * ni * aspect
+        v = 2.0 * nj
+        r = torch.sqrt(u * u + v * v)
+        theta = r * (0.5 * cfg.fisheye_fov_degrees * (PI / 180.0))
+        phi = torch.atan2(v, torch.where(r > 0.0, u, 1.0))
+        st, ct = torch.sin(theta), torch.cos(theta)
+        d = ct[:, None] * fwd + (st * torch.cos(phi))[:, None] * ru \
+            + (st * torch.sin(phi))[:, None] * uu
+        return normalize(d), None, r <= 1.0
+    if cfg.projection == "equirect":
+        # a 360x180 latitude-longitude panorama around the view direction
+        lon = (2.0 * PI) * ni
+        lat = PI * nj
+        cl = torch.cos(lat)
+        d = (cl * torch.cos(lon))[:, None] * fwd \
+            + (cl * torch.sin(lon))[:, None] * ru \
+            + torch.sin(lat)[:, None] * uu
+        return normalize(d), None, None
+    # "ortho": rays along the view axis from a shifted origin
+    off = (ni * (cfg.ortho_height * aspect))[:, None] * ru \
+        + (nj * cfg.ortho_height)[:, None] * uu
+    d = fwd.expand(off.shape[0], 3) if fwd.shape[0] == 1 else normalize(fwd)
+    return d, off, None
+
+
+def _scan_total(cfg: RenderConfig) -> int:
+    """Pixels one round-robin raygen pass covers: the crop window's, else
+    the frame's."""
+    if cfg.crop is not None:
+        return int(cfg.crop[2]) * int(cfg.crop[3])
+    return cfg.width * cfg.height
+
+
+def _salted_frame(cfg: RenderConfig, frame):
+    """The frame counter keying the step's xorshift streams: with
+    ``cfg.seed`` offset by seed * 2654435761 (mod 2^32), which re-keys
+    them all; seed 0 leaves it as it is."""
+    if not cfg.seed:
+        return frame
+    return (frame + ((cfg.seed * 2654435761) & 0xFFFFFFFF)) & 0xFFFFFFFF
+
+
+def _raygen(cfg: RenderConfig, camera: CameraParams, start_position, frame,
+            perm=None, sample_base=None, cam_prev=None):
     """Fresh camera rays for every queue slot (the merge keeps carried
-    survivors in the tail slots)."""
+    survivors in the tail slots).  ``perm``: the adaptive visit order;
+    ``sample_base``: the Sobol pass counter; ``cam_prev``: the previous
+    pose that motion blur lerps from.  ``frame`` is the salted one."""
     n = cfg.num_rays
     w, h = cfg.width, cfg.height
     dev = camera.position.device
+    total = _scan_total(cfg)
     gen_index = torch.arange(n, dtype=torch.int64, device=dev)
-    scan = (start_position + gen_index) % (w * h)
-    if cfg.raygen_order == "tiled8" and w % 8 == 0 and h % 8 == 0:
+    scan = (start_position + gen_index) % total
+    tiled = cfg.raygen_order == "tiled8"
+    if cfg.crop is not None:
+        # the scan covers the crop window, in 8x8 tiles when they fit
+        cx0, cy0, cw, ch = (int(v) for v in cfg.crop)
+        if tiled and cw % 8 == 0 and ch % 8 == 0:
+            tile = scan // 64
+            within = scan % 64
+            cx = (tile % (cw // 8)) * 8 + within % 8
+            cy = (tile // (cw // 8)) * 8 + within // 8
+        else:
+            cx = scan % cw
+            cy = scan // cw
+        x_i = cx0 + cx
+        y_i = cy0 + cy
+        pixel = y_i * w + x_i
+    elif perm is not None:
+        # adaptive sampling: the visit order, with repetition
+        pixel = perm[scan].to(torch.int64)
+        x_i = pixel % w
+        y_i = pixel // w
+    elif tiled and w % 8 == 0 and h % 8 == 0:
         # 8x8 screen tiles: consecutive rays share a tile (coherent packets)
         tile = scan // 64
         within = scan % 64
@@ -200,30 +333,78 @@ def _raygen(cfg: RenderConfig, camera: CameraParams, start_position, frame):
     y = y_i.to(torch.float32)
 
     # every seed keeps the JAX package's row-offset part (0: one image strip)
-    seed = rng.seed_from(frame, gen_index, 0, 0x5EED)
-    seed, uv = rng.random_2d_stratified(seed)
-    px = x - uv[..., 0]  # the reference subtracts the jitter
-    py = y - uv[..., 1]
+    salt = (cfg.seed,) if cfg.seed else ()
+    sample_idx = None
+    if cfg.sampler == "sobol":
+        # pixel p's k-th path is the one made on wrap k of the counter
+        sample_idx = (sample_base + (start_position + gen_index) // total) \
+            & 0xFFFFFFFF
+        key = rng.seed_prefix(pixel, 0, *salt)
+        ju, jv = sobol.sample_2d(sample_idx,
+                                 rng.seed_from(0x50B01, prefix=key))
+        px = x - ju
+        py = y - jv
+    else:
+        seed = rng.seed_from(frame, gen_index, 0, 0x5EED)
+        seed, uv = rng.random_2d_stratified(seed)
+        px = x - uv[..., 0]  # the reference subtracts the jitter
+        py = y - uv[..., 1]
     ni = px / w - 0.5
     nj = (h - py) / h - 0.5
 
-    dir_fp = _primary_dirs(camera, ni, nj)
-    base = camera.position[None]
-    conv = base + (camera.focal_distance * cfg.focal_distance_scale) * dir_fp
-    seed, l0 = rng.random_float(seed)
-    seed, l1 = rng.random_float(seed)
-    p_lens = camera.lens_radius * concentric_sample_disk(
-        torch.stack([l0, l1], dim=-1))
-    origin = base + p_lens[:, 0:1] * camera.right[None] \
-        + p_lens[:, 1:2] * camera.up[None]
+    cam_i = camera
+    if cfg.motion_blur > 0.0 and cam_prev is not None:
+        # each ray sees the pose lerped from the previous one at a shutter
+        # time s in (1 - shutter, 1], drawn on a side stream (the other
+        # streams stay as without blur)
+        _, ut = rng.random_float(rng.seed_from(frame, gen_index, 0, 0x7131))
+        s_t = (1.0 - cfg.motion_blur * ut)[:, None]
+
+        def lerp(cur, prev):
+            return prev[None] + s_t * (cur - prev)[None]
+
+        cam_i = CameraParams(
+            position=lerp(camera.position, cam_prev.position),
+            direction=normalize(lerp(camera.direction, cam_prev.direction)),
+            right=lerp(camera.right, cam_prev.right),
+            up=lerp(camera.up, cam_prev.up),
+            focal_distance=camera.focal_distance,
+            lens_radius=camera.lens_radius)
+
+    dir_fp, o_off, live = _primary_dirs(cfg, cam_i, ni, nj)
+    base = _rows(cam_i.position) if o_off is None \
+        else _rows(cam_i.position) + o_off
+    conv = base + (cam_i.focal_distance * cfg.focal_distance_scale) * dir_fp
+    if cfg.sampler == "sobol":
+        l0, l1 = sobol.sample_2d(sample_idx,
+                                 rng.seed_from(0x50B02, prefix=key))
+    else:
+        seed, l0 = rng.random_float(seed)
+        seed, l1 = rng.random_float(seed)
+    lens_u = torch.stack([l0, l1], dim=-1)
+    if cfg.bokeh_blades:
+        # a polygonal aperture: out-of-focus highlights take the iris shape
+        p_lens = cam_i.lens_radius * polygon_sample_disk(
+            lens_u, cfg.bokeh_blades, math.radians(cfg.bokeh_rotation))
+    else:
+        p_lens = cam_i.lens_radius * concentric_sample_disk(lens_u)
+    origin = base + p_lens[:, 0:1] * _rows(cam_i.right) \
+        + p_lens[:, 1:2] * _rows(cam_i.up)
     direction = normalize(conv - origin)
-    return dict(origin=origin, direction=direction,
-                direct=torch.ones((n, 3), dtype=torch.float32, device=dev),
-                pending=torch.zeros((n, 3), dtype=torch.float32, device=dev),
-                pixel=pixel.to(torch.int32),
-                bounces=torch.zeros((n,), dtype=torch.int32, device=dev),
-                # RayQueue default: lastSpecular = true
-                last_specular=torch.ones((n,), dtype=torch.bool, device=dev))
+    direct = torch.ones((n, 3), dtype=torch.float32, device=dev)
+    if live is not None:
+        # outside the fisheye's circle: zero throughput, but the path ends
+        # as usual, so the pixel's path count stays exact
+        direct = direct * live[:, None].to(torch.float32)
+    out = dict(origin=origin, direction=direction, direct=direct,
+               pending=torch.zeros((n, 3), dtype=torch.float32, device=dev),
+               pixel=pixel.to(torch.int32),
+               bounces=torch.zeros((n,), dtype=torch.int32, device=dev),
+               # RayQueue default: lastSpecular = true
+               last_specular=torch.ones((n,), dtype=torch.bool, device=dev))
+    if sample_idx is not None:
+        out["sample_idx"] = sample_idx
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -521,20 +702,24 @@ def _fog_on(cfg: RenderConfig) -> bool:
     return cfg.fog == "on" and (cfg.fog_sigma_s + cfg.fog_sigma_a) > 0.0
 
 
-def _shade_fog_sample(cfg: RenderConfig, rays, t, frame, slot):
+def _shade_fog_sample(cfg: RenderConfig, rays, t, frame, slot, sob1=None):
     """One free-flight draw a segment against its slab overlap: a
     collision before the surface makes the segment's event a medium event
     at t = t_enter + s.  Conditioning on no collision cancels the
     transmittance, so the surface and sky branches take no weight; the
     scattering albedo is applied through the throughput's colour
-    multiply.  Returns (t, is_fog)."""
+    multiply.  ``sob1``: the Sobol draws (:func:`_sobol_draws`), whose
+    purpose 9 replaces the side stream.  Returns (t, is_fog)."""
     d = rays["direction"]
     f_sigma_t = cfg.fog_sigma_s + cfg.fog_sigma_a
     f_ta, f_len = _fog_overlap(rays["origin"], d, t, cfg.fog_z_min,
                                cfg.fog_z_max)
-    # side stream: the fog-off streams stay untouched
-    _, u_f = rng.random_float(
-        rng.seed_from(frame, rays["pixel"], slot, 0, 0xF06))
+    if sob1 is not None:
+        u_f = sob1(9)
+    else:
+        # side stream: the fog-off streams stay untouched
+        _, u_f = rng.random_float(
+            rng.seed_from(frame, rays["pixel"], slot, 0, 0xF06))
     if cfg.fog_falloff:
         f_rho0, f_k = _fog_density_coeffs(rays["origin"], d, f_ta,
                                           cfg.fog_falloff)
@@ -823,18 +1008,23 @@ def _pick_light(cfg: RenderConfig, scene: SceneData, lu, total: int):
     return pick, scene.light_inv_pdf[pick.long()]
 
 
-def _env_nee_sample(scene: SceneData, rays, frame, slot):
+def _env_nee_sample(scene: SceneData, rays, frame, slot, sob2=None):
     """One environment draw a ray (the sun slot of NEE under MIS): an
     alias row turns two uniforms into a texel whose radiance and
     solid-angle pdf ride the row, two more jitter the direction inside
-    it.  Returns (direction [N, 3], radiance / pdf [N, 3], pdf [N])."""
+    it (Sobol purposes 11 and 12 under ``sob2``).  Returns (direction
+    [N, 3], radiance / pdf [N, 3], pdf [N])."""
     eh, ew = int(scene.env_meta[0]), int(scene.env_meta[1])
     n_tx = eh * ew
-    es = rng.seed_from(frame, rays["pixel"], slot, 0, 0xE571)
-    es, eu1 = rng.random_float(es)
-    es, eu2 = rng.random_float(es)
-    es, ej1 = rng.random_float(es)
-    _, ej2 = rng.random_float(es)
+    if sob2 is not None:
+        eu1, eu2 = sob2(11)
+        ej1, ej2 = sob2(12)
+    else:
+        es = rng.seed_from(frame, rays["pixel"], slot, 0, 0xE571)
+        es, eu1 = rng.random_float(es)
+        es, eu2 = rng.random_float(es)
+        es, ej1 = rng.random_float(es)
+        _, ej2 = rng.random_float(es)
     ei = torch.clamp((eu1 * n_tx).to(torch.int32), max=n_tx - 1)
     erow = scene.env_alias[ei.long()]
     ekeep = eu2 < erow[:, 0]
@@ -853,30 +1043,40 @@ def _env_nee_sample(scene: SceneData, rays, frame, slot):
 
 def _shade_nee_samples(cfg: RenderConfig, scene: SceneData,
                        sky_params: skymod.SkyParams, sun_dir, rays, o,
-                       normal, frame, slot, seed):
+                       normal, frame, slot, seed, sob=None):
     """The NEE samples: the sun-cone sample (or, with an envmap under MIS,
     the environment draw; with an envmap without MIS, none: the light
     takes every NEE sample), the 50/50 strategy coin, and the light pick
     (several spheres, emissive triangles with their two-sided normal,
-    delta lights) with its surface sample and geometry factors.  Returns
-    a dict of what the estimators read."""
+    delta lights) with its surface sample and geometry factors.  Under
+    ``sob`` = (sob1, sob2) the Sobol purposes 2 (cone), 3 (coin), 4
+    (pick) and 5 (light point) replace the xorshift draws.  Returns a
+    dict of what the estimators read."""
+    sob1, sob2 = sob or (None, None)
     n = o.shape[0]
     mis = cfg.mis == "on"
     env_nee = mis and scene.has_envmap
     nee = dict(sun_radiance_env=None, e_pdf=None)
     if env_nee:
         sun_sample, nee["sun_radiance_env"], nee["e_pdf"] = \
-            _env_nee_sample(scene, rays, frame, slot)
+            _env_nee_sample(scene, rays, frame, slot, sob2)
     elif scene.has_envmap:
         sun_sample = sun_dir.expand(n, 3)  # no analytic sun under an envmap
+    elif sob2 is not None:
+        sun_sample = cone_sample_from_uniforms(
+            sun_dir.expand(n, 3),
+            1.0 - sky_params.sun_angular_diameter_cos, *sob2(2))
     else:
         sun_extent = 1.0 - sky_params.sun_angular_diameter_cos
         seed, sun_sample = cone_sample(sun_dir.expand(n, 3), sun_extent,
                                        seed)
     sun_cos = dot(normal, sun_sample)
-    # side stream: the coin leaves the main shade stream untouched
-    _, cs_u = rng.random_float(
-        rng.seed_from(frame, rays["pixel"], slot, 0, 0xC0F1))
+    if sob1 is not None:
+        cs_u = sob1(3)
+    else:
+        # side stream: the coin leaves the main shade stream untouched
+        _, cs_u = rng.random_float(
+            rng.seed_from(frame, rays["pixel"], slot, 0, 0xC0F1))
     choose_sun = cs_u < 0.5
     inv_p_sun = inv_p_light = 2.0
     if scene.has_envmap and not env_nee:
@@ -893,8 +1093,11 @@ def _shade_nee_samples(cfg: RenderConfig, scene: SceneData,
     if multi:
         # one light a ray from a side stream (single-light scenes keep
         # their streams), one uniform pair for whichever shape it picked
-        _, lu = rng.random_float(
-            rng.seed_from(frame, rays["pixel"], slot, 0, 0x11F7))
+        if sob1 is not None:
+            lu = sob1(4)
+        else:
+            _, lu = rng.random_float(
+                rng.seed_from(frame, rays["pixel"], slot, 0, 0x11F7))
         pick, n_lights = _pick_light(cfg, scene, lu, total)
         if scene.n_spheres == 0:
             # only triangle and delta lights: inert stand-ins (radius 1
@@ -915,8 +1118,11 @@ def _shade_nee_samples(cfg: RenderConfig, scene: SceneData,
                                   light_r)
             light_e = torch.where(_col(sel),
                                   scene.sphere_emission[lights[k]], light_e)
-        seed, lu1 = rng.random_float(seed)
-        seed, lu2 = rng.random_float(seed)
+        if sob2 is not None:
+            lu1, lu2 = sob2(5)
+        else:
+            seed, lu1 = rng.random_float(seed)
+            seed, lu2 = rng.random_float(seed)
         lp = sphere_surface_from_uniforms(light_c, _col(light_r), lu1, lu2)
         n_l = normalize(lp - light_c)
         area = 4.0 * PI * light_r * light_r
@@ -949,7 +1155,12 @@ def _shade_nee_samples(cfg: RenderConfig, scene: SceneData,
             light_r = scene.sphere_radius[li]
             light_e = scene.sphere_emission[li]
         n_lights = 1.0
-        seed, lp = sphere_surface_sample(light_c.expand(n, 3), light_r, seed)
+        if sob2 is not None:
+            lp = sphere_surface_from_uniforms(light_c.expand(n, 3), light_r,
+                                              *sob2(5))
+        else:
+            seed, lp = sphere_surface_sample(light_c.expand(n, 3), light_r,
+                                             seed)
         n_l = normalize(lp - light_c)
         area = 4.0 * PI * light_r * light_r
     lvec = lp - o
@@ -1169,7 +1380,7 @@ def _shade_nee_weights(cfg: RenderConfig, scene: SceneData,
 
 
 def _glass_eta(cfg: RenderConfig, scene: SceneData, rays, direct, hit,
-               refl, is_tri, rough_tri, frame, slot):
+               refl, is_tri, rough_tri, frame, slot, sob1=None):
     """The REFR index of refraction: the reference's 1.2, a REFR
     triangle's own IOR under ``has_var_ior``, and under ``cfg.dispersion``
     one wavelength channel per glass event.  Returns (eta, direct): eta a
@@ -1178,15 +1389,19 @@ def _glass_eta(cfg: RenderConfig, scene: SceneData, rays, direct, hit,
     Dispersion: eta_c = eta * (1 + dispersion * (c - 1)) for c in {0:R,
     1:G, 2:B}.  A polychromatic path meeting glass collapses to a random
     channel (direct *= 3 * onehot(c), unbiased); a monochromatic path
-    keeps its channel.  The channel comes from a side stream, so the main
-    shade stream draws as without dispersion.  RREFR stays undispersed."""
+    keeps its channel.  The channel comes from a side stream (Sobol
+    purpose 13 under ``sob1``), so the main shade stream draws as without
+    dispersion.  RREFR stays undispersed."""
     eta = 1.2
     if scene.has_var_ior:
         eta = torch.where(is_tri & (refl == REFR), rough_tri,
                           torch.full_like(rough_tri, 1.2))
     if cfg.dispersion:
-        _, u_w = rng.random_float(
-            rng.seed_from(frame, rays["pixel"], slot, 0, 0xD15B))
+        if sob1 is not None:
+            u_w = sob1(13)
+        else:
+            _, u_w = rng.random_float(
+                rng.seed_from(frame, rays["pixel"], slot, 0, 0xD15B))
         pick = torch.clamp((u_w * 3.0).to(torch.int32), max=2)
         pos = direct > 0
         poly = (pos[:, 0].to(torch.int32) + pos[:, 1].to(torch.int32)
@@ -1207,7 +1422,7 @@ def _shade_bounce(cfg: RenderConfig, scene: SceneData, rays, d, o, normal,
                   direct, hit, refl, is_tri, is_sphere, srow, rough_tri,
                   outside, is_diff, is_phong, w_refl, obj_color, t_safe,
                   seed, frame, slot, ggx=None, bsdf_pdf_toward=None,
-                  is_fog=None, is_pass=None):
+                  is_fog=None, is_pass=None, sob=None):
     """Bounce sampling: DIFF cosine hemisphere, SPEC mirror, REFR Fresnel/
     TIR/Beer-Lambert (per-triangle IOR, dispersion), PHONG lobe with
     rejection, and under the scene's flags the GGX VNDF lobe (``ggx`` =
@@ -1215,18 +1430,26 @@ def _shade_bounce(cfg: RenderConfig, scene: SceneData, rays, d, o, normal,
     medium events ``is_fog`` and the cutout pass-throughs ``is_pass``
     (the ray goes on behind the surface with its history and pdf).  Under
     MIS (``bsdf_pdf_toward`` given) also the pdf of the sampled direction,
-    0 for a delta-born ray (mirror and both glass branches).  Returns
-    (seed, new_dir, direct, new_last_spec, next_bsdf_pdf or None,
-    origin_out)."""
+    0 for a delta-born ray (mirror and both glass branches).  Under
+    ``sob`` = (sob1, sob2) the Sobol purposes 6 (the bounce pair, which
+    DIFF, GGX and RREFR share), 7 (the glass coin), 10 (the HG bounce)
+    and 13 (the dispersion channel) replace the xorshift draws; the PHONG
+    rejection loop keeps its stream.  Returns (seed, new_dir, direct,
+    new_last_spec, next_bsdf_pdf or None, origin_out)."""
     eps = cfg.epsilon
-    seed, diff_dir = cosine_hemisphere_sample(normal, seed)
+    sob1, sob2 = sob or (None, None)
+    if sob2 is not None:
+        b_u, b_v = sob2(6)
+        diff_dir = cosine_hemisphere_from_uniforms(normal, b_u, b_v)
+    else:
+        seed, diff_dir = cosine_hemisphere_sample(normal, seed)
     diff_new_dir = torch.where(_col(rays["bounces"] < cfg.max_bounces),
                                diff_dir, d)
     spec_dir = reflect(d, normal)
 
     # REFR: Schlick Fresnel + TIR, the reference's reversed-IoR convention
     eta, direct = _glass_eta(cfg, scene, rays, direct, hit, refl, is_tri,
-                             rough_tri, frame, slot)
+                             rough_tri, frame, slot, sob1)
     one = torch.ones_like(t_safe)
     n1 = torch.where(outside, one * eta, one)
     n2 = torch.where(outside, one, one * eta)
@@ -1237,7 +1460,10 @@ def _shade_bounce(cfg: RenderConfig, scene: SceneData, rays, d, o, normal,
     tir = sin_t2 > 1.0
     fresnel = torch.where(tir, one, r0 + (1.0 - r0) * torch.pow(
         torch.clamp(1.0 - cos_i, min=0.0), 5.0))
-    seed, fr = rng.random_float(seed)
+    if sob1 is not None:
+        fr = sob1(7)
+    else:
+        seed, fr = rng.random_float(seed)
     refr_reflects = fr < fresnel
     cos_t = torch.sqrt(torch.clamp(1.0 - sin_t2, min=0.0))
     refr_dir = _col(nr) * d + _col(nr * cos_i - cos_t) * normal
@@ -1268,9 +1494,12 @@ def _shade_bounce(cfg: RenderConfig, scene: SceneData, rays, d, o, normal,
         # VNDF-sampled half-vector from a side stream; the reflected
         # direction's weight is F(h.v) * G1(n.l), zero below the horizon
         is_ggx, ggx_alpha = ggx
-        gseed = rng.seed_from(frame, rays["pixel"], slot, 0, 0x66C5)
-        gseed, gu1 = rng.random_float(gseed)
-        _, gu2 = rng.random_float(gseed)
+        if sob2 is not None:
+            gu1, gu2 = b_u, b_v
+        else:
+            gseed = rng.seed_from(frame, rays["pixel"], slot, 0, 0x66C5)
+            gseed, gu1 = rng.random_float(gseed)
+            _, gu2 = rng.random_float(gseed)
         view = -d
         ggx_h = ggx_vndf_sample_from_uniforms(view, normal, ggx_alpha,
                                               gu1, gu2)
@@ -1295,9 +1524,12 @@ def _shade_bounce(cfg: RenderConfig, scene: SceneData, rays, d, o, normal,
         is_rrefr = hit & (refl == RREFR)
         rr_rough = torch.where(is_sphere, srow[:, 11], rough_tri)
         rr_alpha = torch.clamp(rr_rough * rr_rough, 1e-4, 1.0)
-        rsd = rng.seed_from(frame, rays["pixel"], slot, 0, 0x4F61)
-        rsd, ru1 = rng.random_float(rsd)
-        _, ru2 = rng.random_float(rsd)
+        if sob2 is not None:
+            ru1, ru2 = b_u, b_v
+        else:
+            rsd = rng.seed_from(frame, rays["pixel"], slot, 0, 0x4F61)
+            rsd, ru1 = rng.random_float(rsd)
+            _, ru2 = rng.random_float(rsd)
         rr_h = ggx_vndf_sample_from_uniforms(-d, normal, rr_alpha, ru1, ru2)
         cos_im = -dot(rr_h, d)
         sin_t2m = nr * nr * (1.0 - cos_im * cos_im)
@@ -1324,9 +1556,12 @@ def _shade_bounce(cfg: RenderConfig, scene: SceneData, rays, d, o, normal,
         # the medium event's bounce: the exact HG inverse CDF around the
         # incoming direction (pdf = phase: weight 1; the albedo came
         # through the colour multiply)
-        fs = rng.seed_from(frame, rays["pixel"], slot, 0, 0xF09)
-        fs, fu1 = rng.random_float(fs)
-        _, fu2 = rng.random_float(fs)
+        if sob2 is not None:
+            fu1, fu2 = sob2(10)
+        else:
+            fs = rng.seed_from(frame, rays["pixel"], slot, 0, 0xF09)
+            fs, fu1 = rng.random_float(fs)
+            _, fu2 = rng.random_float(fs)
         fog_dir = hg_sample_from_uniforms(d, cfg.fog_g, fu1, fu2)
         new_dir = torch.where(_col(is_fog), fog_dir, new_dir)
 
@@ -1364,6 +1599,25 @@ def _shade_bounce(cfg: RenderConfig, scene: SceneData, rays, d, o, normal,
     return seed, new_dir, direct, new_last_spec, next_bsdf_pdf, origin_out
 
 
+def _sobol_draws(cfg: RenderConfig, rays):
+    """(sob1, sob2): shade's Sobol draws, each of a purpose (the JAX
+    package's numbers), at every ray's own sample index, keyed by (pixel,
+    row offset 0, bounces * 16 + purpose, cfg.seed when set, 0x50B0): a
+    path's k-th sample takes point k of one sequence a dimension.  The
+    (pixel, row offset) part of the key is hashed once for all
+    purposes."""
+    s_idx = rays["sample_idx"]
+    salt = (cfg.seed,) if cfg.seed else ()
+    prefix = rng.seed_prefix(rays["pixel"], 0)
+    dim = rays["bounces"] * 16
+
+    def key(purpose):
+        return rng.seed_from(dim + purpose, *salt, 0x50B0, prefix=prefix)
+
+    return (lambda purpose: sobol.sample_1d(s_idx, key(purpose)),
+            lambda purpose: sobol.sample_2d(s_idx, key(purpose)))
+
+
 def _shade(cfg: RenderConfig, scene: SceneData, sky_params: skymod.SkyParams,
            sun_dir, rays, t, ident, is_tri, frame, tri_normal=None):
     """Shade every queue slot.  Returns (color, survive, next_rays,
@@ -1378,10 +1632,12 @@ def _shade(cfg: RenderConfig, scene: SceneData, sky_params: skymod.SkyParams,
     d = rays["direction"]
     slot = torch.arange(n, dtype=torch.int64, device=d.device)
 
+    sob = _sobol_draws(cfg, rays) if cfg.sampler == "sobol" else None
     fog_on = _fog_on(cfg)
     is_fog = None
     if fog_on:
-        t, is_fog = _shade_fog_sample(cfg, rays, t, frame, slot)
+        t, is_fog = _shade_fog_sample(cfg, rays, t, frame, slot,
+                                      None if sob is None else sob[0])
 
     hit = t < VERY_FAR
     t_safe = torch.where(hit, t, torch.zeros_like(t))
@@ -1450,7 +1706,7 @@ def _shade(cfg: RenderConfig, scene: SceneData, sky_params: skymod.SkyParams,
 
     seed = rng.seed_from(frame, rays["pixel"], slot, 0, 0x5ADE)
     nee = _shade_nee_samples(cfg, scene, sky_params, sun_dir, rays, o,
-                             normal, frame, slot, seed)
+                             normal, frame, slot, seed, sob)
     (shadow_ok, shadow_dir, shadow_color, shadow_maxd, w_refl, is_diff,
      is_phong, bsdf_pdf_toward, p_sun_sa) = _shade_nee_weights(
         cfg, scene, sky_params, d, o, normal, direct, hit, refl, sun_dir,
@@ -1461,11 +1717,14 @@ def _shade(cfg: RenderConfig, scene: SceneData, sky_params: skymod.SkyParams,
                       is_phong, w_refl, obj_color, t_safe, nee["seed"],
                       frame, slot, ggx=ggx,
                       bsdf_pdf_toward=bsdf_pdf_toward if mis else None,
-                      is_fog=is_fog, is_pass=is_pass)
+                      is_fog=is_fog, is_pass=is_pass, sob=sob)
 
     # Russian roulette
     p = torch.clamp(direct.amax(-1), max=1.0)
-    seed, rr = rng.random_float(seed)
+    if sob is not None:
+        rr = sob[0](8)
+    else:
+        seed, rr = rng.random_float(seed)
     survive = hit & (rays["bounces"] < cfg.max_bounces) & (p > eps) & (rr <= p)
     direct_out = torch.where(_col(survive),
                              direct / _col(torch.clamp(p, min=1e-20)), direct)
@@ -1503,6 +1762,10 @@ def _shade(cfg: RenderConfig, scene: SceneData, sky_params: skymod.SkyParams,
                      last_specular=new_last_spec)
     if mis:
         next_rays["bsdf_pdf"] = next_bsdf_pdf
+    if sob is not None:
+        # a ray keeps its sample index for its whole path (the bounce
+        # depth tells its dimensions apart)
+        next_rays["sample_idx"] = rays["sample_idx"]
     shadow = dict(origin=o, direction=shadow_dir, color=shadow_color,
                   max_dist=shadow_maxd, valid=shadow_ok)
     return color, survive, next_rays, shadow
@@ -1536,10 +1799,11 @@ def _connect(scene: SceneData, shadow, tables: PacketTables,
 
 def aov_primaries(camera: CameraParams, cfg: RenderConfig):
     """The AOV pass's rays, one per pixel in scan order: (origin [P, 3],
-    direction [P, 3]), contiguous.  Raygen subtracts the sub-pixel jitter
-    from the integer coordinate, so pixel (x, y)'s samples are centred at
-    (x - 0.5, y - 0.5), and these rays go through that point, with no
-    lens sample."""
+    direction [P, 3]), contiguous, under ``cfg.projection`` (the
+    orthographic camera's origins shifted off the pinhole).  Raygen
+    subtracts the sub-pixel jitter from the integer coordinate, so pixel
+    (x, y)'s samples are centred at (x - 0.5, y - 0.5), and these rays go
+    through that point, with no lens sample."""
     w, h = cfg.width, cfg.height
     pix = torch.arange(w * h, dtype=torch.int32,
                        device=camera.position.device)
@@ -1547,8 +1811,10 @@ def aov_primaries(camera: CameraParams, cfg: RenderConfig):
     y = (pix // w).to(torch.float32)
     ni = (x - 0.5) / w - 0.5
     nj = (h - (y - 0.5)) / h - 0.5
-    d = _primary_dirs(camera, ni, nj).contiguous()
-    return camera.position[None].expand(w * h, 3).contiguous(), d
+    d, o_off, _ = _primary_dirs(cfg, camera, ni, nj)
+    o = camera.position[None].expand(w * h, 3) if o_off is None \
+        else camera.position[None] + o_off
+    return o.contiguous(), d.contiguous()
 
 
 def render_aovs(scene: SceneData, camera: CameraParams, cfg: RenderConfig,
@@ -1622,12 +1888,17 @@ def compaction_sort_key(next_rays, survive, node_packed, sent: int):
 
 
 def merge_queue(cfg: RenderConfig, state: RenderState,
-                camera: CameraParams) -> dict:
+                camera: CameraParams, cam_prev: CameraParams | None = None
+                ) -> dict:
     """The step's ray queue (raygen top-off): the tail slots
     [n - n_carried, n) keep the carried survivors, the front slots get
     fresh camera rays."""
     n = cfg.num_rays
-    gen = _raygen(cfg, camera, state.start_position, state.frame)
+    gen = _raygen(cfg, camera, state.start_position,
+                  _salted_frame(cfg, state.frame),
+                  perm=state.pixel_perm if cfg.adaptive_sampling == "on"
+                  else None, sample_base=state.sample_base,
+                  cam_prev=cam_prev)
     slot = torch.arange(n, dtype=torch.int64, device=state.accum.device)
     keep = slot >= (n - state.n_carried)
 
@@ -1642,25 +1913,58 @@ def merge_queue(cfg: RenderConfig, state: RenderState,
         # carried rays keep the pdf of the sample that made them
         rays["bsdf_pdf"] = merge(state.bsdf_pdf, torch.ones_like(
             state.bsdf_pdf))
+    if cfg.sampler == "sobol":
+        rays["sample_idx"] = merge(state.sample_idx, gen["sample_idx"])
     return rays
+
+
+def check_step(cfg: RenderConfig, state: RenderState) -> None:
+    """Raise ValueError, as the JAX step does, for a crop window outside
+    the frame or beside adaptive sampling, and for an adaptive step on a
+    state without its visit order (an old checkpoint: raygen would send
+    every fresh ray to pixel 0)."""
+    adaptive = cfg.adaptive_sampling == "on"
+    if cfg.crop is not None:
+        cx0, cy0, cw, ch = (int(v) for v in cfg.crop)
+        if adaptive:
+            raise ValueError("cfg.crop is incompatible with "
+                             "adaptive_sampling='on'")
+        if not (0 <= cx0 and 0 <= cy0 and cw > 0 and ch > 0
+                and cx0 + cw <= cfg.width and cy0 + ch <= cfg.height):
+            raise ValueError(f"crop {cfg.crop} outside the "
+                             f"{cfg.width}x{cfg.height} frame")
+    if adaptive and state.pixel_perm.shape[0] != cfg.num_pixels:
+        raise ValueError(
+            f"adaptive_sampling='on' but state.pixel_perm has "
+            f"{state.pixel_perm.shape[0]} entries (expected "
+            f"{cfg.num_pixels}); re-init with init_state(cfg) or load the "
+            "checkpoint with adaptive off")
 
 
 def render_step(state: RenderState, scene: SceneData, camera: CameraParams,
                 sun_dir, *, cfg: RenderConfig, tables: PacketTables,
-                sky_params: skymod.SkyParams | None = None) -> RenderState:
-    """One wavefront iteration.  Updates ``state.accum`` in place and
-    returns the next state.  Each stage runs inside a profiler range named
-    after it (raygen, extend, shade, connect, sort, accumulate), so a
-    ``torch.profiler`` trace splits the step's device time by stage."""
+                sky_params: skymod.SkyParams | None = None,
+                cam_prev: CameraParams | None = None) -> RenderState:
+    """One wavefront iteration.  Updates ``state.accum`` (and
+    ``state.moment2`` when it is tracked) in place and returns the next
+    state.  ``cam_prev``: the previous pose, which motion blur lerps
+    from.  Each stage runs inside a profiler range named after it (raygen,
+    extend, shade, connect, sort, accumulate), so a ``torch.profiler``
+    trace splits the step's device time by stage."""
+    check_step(cfg, state)
     sky_params = sky_params or skymod.SkyParams(cfg.sky)
     n = cfg.num_rays
-    n_pix = cfg.num_pixels
+    total = _scan_total(cfg)
+    frame_s = _salted_frame(cfg, state.frame)
 
     # 1. raygen top-off
     with record_function("raygen"):
-        rays = merge_queue(cfg, state, camera)
-        generated = n - state.n_carried
-        start_next = (state.start_position + generated) % n_pix
+        rays = merge_queue(cfg, state, camera, cam_prev)
+        scanned = state.start_position + (n - state.n_carried)
+        start_next = scanned % total
+        # Sobol: the round-robin passes completed
+        sample_base_next = (state.sample_base + scanned // total) \
+            & 0xFFFFFFFF
 
     # 2. extend (with the hit normals under use_kernel_normals, on a scene
     # whose triangles all have the default material)
@@ -1674,7 +1978,7 @@ def render_step(state: RenderState, scene: SceneData, camera: CameraParams,
     with record_function("shade"):
         color, survive, next_rays, shadow = _shade(
             cfg, scene, sky_params, sun_dir, rays, t, ident, is_tri,
-            state.frame, tri_normal=tri_normal[0] if tri_normal else None)
+            frame_s, tri_normal=tri_normal[0] if tri_normal else None)
 
     # 4. connect
     with record_function("connect"):
@@ -1685,8 +1989,12 @@ def render_step(state: RenderState, scene: SceneData, camera: CameraParams,
     # terminated rays (shade's RNG is keyed by queue slot, so the order
     # must equal the JAX package's stable multi-operand sort)
     with record_function("sort"):
-        pend = rays["pending"] + (color + shadow_contrib)
-        sent = sentinel(n_pix)
+        contrib = color + shadow_contrib
+        if cfg.radiance_clamp > 0.0:
+            # the firefly clamp on each bounce's contribution, per channel
+            contrib = torch.clamp(contrib, max=cfg.radiance_clamp)
+        pend = rays["pending"] + contrib
+        sent = sentinel(cfg.num_pixels)
         key = compaction_sort_key(next_rays, survive, scene.bvh.node_packed,
                                   sent)
         # pixel (< 2^21) | bounces (<= 15) | lastSpecular in one column
@@ -1700,12 +2008,19 @@ def render_step(state: RenderState, scene: SceneData, camera: CameraParams,
         packed_s = packed[order]
         bsdf_pdf_s = next_rays["bsdf_pdf"][order] if cfg.mis == "on" \
             else state.bsdf_pdf
+        sample_idx_s = next_rays["sample_idx"][order] \
+            if cfg.sampler == "sobol" else state.sample_idx
         n_carried = survive.sum()
 
     # 6. flush the terminated rays' pending radiance (+1 path count),
-    # straight from the sort: the keys below the sentinel
+    # straight from the sort: the keys below the sentinel; with the second
+    # moments, their squares in the same launch
     with record_function("accumulate"):
-        accum = accumulate_terminated(state.accum, key_s, pend_s)
+        if _moments(cfg):
+            accum = accumulate_terminated(state.accum, key_s, pend_s,
+                                          moment2=state.moment2)
+        else:
+            accum = accumulate_terminated(state.accum, key_s, pend_s)
 
     return RenderState(
         accum=accum, origin=origin_s, direction=direction_s, direct=direct_s,
@@ -1713,7 +2028,16 @@ def render_step(state: RenderState, scene: SceneData, camera: CameraParams,
         last_specular=(packed_s & 1).to(torch.bool), n_carried=n_carried,
         start_position=start_next, frame=(state.frame + 1) & 0xFFFFFFFF,
         shadow_rays=state.shadow_rays + shadow["valid"].sum(),
-        bsdf_pdf=bsdf_pdf_s)
+        bsdf_pdf=bsdf_pdf_s, moment2=state.moment2,
+        pixel_perm=state.pixel_perm, sample_base=sample_base_next,
+        sample_idx=sample_idx_s)
+
+
+def _camera_views(buf: torch.Tensor) -> CameraParams:
+    """A camera whose fields are views of one 14-float buffer."""
+    return CameraParams(position=buf[0:3], direction=buf[3:6],
+                        right=buf[6:9], up=buf[9:12], focal_distance=buf[12],
+                        lens_radius=buf[13])
 
 
 class _Graph:
@@ -1773,7 +2097,17 @@ class Renderer:
     renderer, run eagerly.  A replay adds nothing to the kernel wrappers'
     launch counters: ``replayed_steps`` counts the steps replayed and
     ``replayed_launches`` the kernel launches the replays made, by
-    counter name (``ops.kernels.launch_counts``)."""
+    counter name (``ops.kernels.launch_counts``).
+
+    Under ``cfg.motion_blur`` the step lerps each fresh ray's pose from
+    the previous distinct pose (captured: a second static camera buffer,
+    filled from the current one on the device before a new pose lands).
+    Under adaptive sampling the visit order is rebuilt every
+    ``cfg.adaptive_interval`` steps after the steps
+    (:func:`adaptive.build_perm`, into the state's ``pixel_perm``; the
+    phase goes to the device from pinned memory, nothing is read back).
+    :meth:`noise_estimate` needs the second moments
+    (``track_variance`` or adaptive sampling)."""
 
     def __init__(self, scene, cfg: RenderConfig = RenderConfig(), *,
                  device="cuda", sun_position=(0.05, 0.3),
@@ -1797,6 +2131,10 @@ class Renderer:
         self._last_cam: CameraParams | None = None  # for the AOV pass
         self._aov_cache = None  # (pose, aovs)
         self.state = init_state(cfg, self.device)
+        self._blur = cfg.motion_blur > 0.0
+        self._prev_cam: CameraParams | None = None  # motion blur, eager
+        self._sched = adaptive_mod.PermScheduler(cfg.adaptive_interval) \
+            if cfg.adaptive_sampling == "on" else None
         self.captured = self.device.type == "cuda" and (
             cfg.fuse_step_chains == "on" or cfg.fuse_step_chains == "auto")
         self.replayed_steps = 0
@@ -1806,16 +2144,20 @@ class Renderer:
             # the static camera: one buffer, its fields are views
             self._cam_buf = torch.zeros(14, dtype=torch.float32,
                                         device=self.device)
-            b = self._cam_buf
-            self._cam = CameraParams(position=b[0:3], direction=b[3:6],
-                                     right=b[6:9], up=b[9:12],
-                                     focal_distance=b[12], lens_radius=b[13])
+            self._cam = _camera_views(self._cam_buf)
             self._cam_vec = None  # the values in the buffer
+            # motion blur's previous pose, a second static buffer
+            self._cam_prev_buf = torch.zeros_like(self._cam_buf)
+            self._cam_prev = _camera_views(self._cam_prev_buf)
 
     def _reset(self):
         if self.captured:  # the graphs read these very tensors
-            self.state.accum.zero_()
-            self.state.n_carried.zero_()
+            st = self.state
+            for t in (st.accum, st.n_carried, st.moment2, st.sample_base):
+                t.zero_()
+            if st.pixel_perm.shape[0] > 1:
+                st.pixel_perm.copy_(adaptive_mod.identity_perm(
+                    st.pixel_perm.shape[0], self.device))
         else:
             self.state = reset_accumulation(self.state)
 
@@ -1836,17 +2178,32 @@ class Renderer:
         step is captured, that state's tensors are the graph's static
         buffers, which the next step or reset overwrites: copy what must
         outlive it."""
+        steps = n_steps
         pose = camera.pose_key()
-        if self._last_pose is not None and pose != self._last_pose:
+        moved = self._last_pose is not None and pose != self._last_pose
+        if moved:
             self._reset()
         self._last_pose = pose
         if not self.captured:
             cam = camera.to_device(self.cfg, self.device)
+            if moved:
+                # the pose just left opens the new frame's shutter
+                self._prev_cam = self._last_cam
             self._last_cam = cam
+            if self._prev_cam is None:
+                self._prev_cam = cam  # the first frame: no motion yet
             for _ in range(n_steps):
-                self.state = self._render_step(self.state, cam)
+                self.state = self._render_step(self.state, cam,
+                                               self._prev_cam)
+            self._adapt(n_steps)
             return self.state
+        first = self._cam_vec is None
+        if self._blur and moved:
+            # in stream order, before the new pose's copy lands
+            self._cam_prev_buf.copy_(self._cam_buf)
         self._set_camera(camera)
+        if self._blur and first:
+            self._cam_prev_buf.copy_(self._cam_buf)
         self._last_cam = self._cam
         if "step" not in self._graphs and n_steps:
             # one graph of one step: a replay costs microseconds, and on an
@@ -1859,7 +2216,39 @@ class Renderer:
         for _ in range(n_steps):
             self._replay(self._graphs["step"])
             self.replayed_steps += 1
+        self._adapt(steps)  # the warm-up step counts
         return self.state
+
+    def _adapt(self, n_steps: int) -> None:
+        """Adaptive sampling: the visit order rebuilt when the scheduler
+        says so, from the moments the steps left, into the state's
+        ``pixel_perm`` (in place when captured: the graph reads it)."""
+        if self._sched is None:
+            return
+        phase = self._sched.tick(n_steps)
+        if phase is None:
+            return
+        ph = torch.tensor(phase, dtype=torch.float32)
+        if self.device.type == "cuda":
+            ph = ph.pin_memory().to(self.device, non_blocking=True)
+        perm = adaptive_mod.build_perm(self.state.accum, self.state.moment2,
+                                       ph, gamma=self.cfg.adaptive_gamma)
+        if self.captured:
+            self.state.pixel_perm.copy_(perm)
+        else:
+            self.state = dataclasses.replace(self.state, pixel_perm=perm)
+
+    def noise_estimate(self) -> float:
+        """The image's convergence: the mean relative standard error of
+        the per-pixel radiance means (:func:`adaptive.mean_relative_error`,
+        read on the host).  Needs the second moments: raises without
+        ``track_variance="on"`` or adaptive sampling."""
+        if self.state.moment2.shape[0] == 1:
+            raise RuntimeError(
+                "noise_estimate() needs per-pixel second moments: set "
+                "track_variance='on' (or adaptive_sampling='on')")
+        return float(adaptive_mod.mean_relative_error(self.state.accum,
+                                                      self.state.moment2))
 
     def _set_camera(self, camera: Camera):
         """The static camera's buffer from ``camera``: the values
@@ -1874,14 +2263,16 @@ class Renderer:
                                 non_blocking=True)
             self._cam_vec = vec
 
-    def _render_step(self, state, cam):
+    def _render_step(self, state, cam, cam_prev=None):
         return render_step(state, self.scene, cam, self.sun_dir, cfg=self.cfg,
-                           tables=self.tables, sky_params=self.sky_params)
+                           tables=self.tables, sky_params=self.sky_params,
+                           cam_prev=cam_prev if self._blur else None)
 
     def _static_step(self):
         """One step on the static buffers: the new state is copied into
-        them (the accumulation is updated in place already)."""
-        new = self._render_step(self.state, self._cam)
+        them (the accumulation and the moments are updated in place
+        already)."""
+        new = self._render_step(self.state, self._cam, self._cam_prev)
         for f in dataclasses.fields(RenderState):
             dst, src = getattr(self.state, f.name), getattr(new, f.name)
             if dst is not src:
