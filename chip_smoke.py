@@ -67,6 +67,18 @@ from the trace, holds the traversal kernels against the plain walk on its
 queues and the accumulation on its step's queue, and compares a 32x32
 render on the card with the CPU's.
 
+The front ends and the strip-parallel path: after the pose harness,
+``utils.profiling.stage_profile`` on the main cell against phase 3's
+stage split, the HTTP viewer on the interactive preset served for 3 s on
+127.0.0.1 (frames that advance, ``/frame.png``, an ``/input`` move),
+``image(uint8=True)`` with its pinned copy and the PNG encode timed, and
+the strips (``parallel/sharded.py``): one strip bit for bit the eager
+``Renderer``, two strips on the one card at full width timed with each
+strip's launches, and two strips at 32x32 against the CPU; after the
+sphere-free scene, the CLI on the loaded path's PLY: ``render`` (its PNG
+bit for bit the ``Renderer``'s image after the same steps, its ``--hdr``
+EXR the radiance), ``info``, ``bvh-debug`` at 1080p and ``bench``.
+
 Run from the root of the repository:
 
     python3 chip_smoke.py
@@ -80,12 +92,17 @@ profiler traces of phase 3 are left in ``build/chip_smoke/``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
+import struct
 import subprocess
 import sys
 import time
+import urllib.request
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -96,8 +113,10 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from tyrant_tpu_torch import adaptive as adaptive_mod  # noqa: E402
 from tyrant_tpu_torch import checkpoint  # noqa: E402
+from tyrant_tpu_torch import cli  # noqa: E402
 from tyrant_tpu_torch import native  # noqa: E402
 from tyrant_tpu_torch import render as tr  # noqa: E402
+from tyrant_tpu_torch import viewer  # noqa: E402
 from tyrant_tpu_torch.bench import equivalence, interactive  # noqa: E402
 from tyrant_tpu_torch.bench.harness import (results_to_dict,  # noqa: E402
                                             run_benchmark)
@@ -122,6 +141,9 @@ from tyrant_tpu_torch.scene.ply import load_ply_attrs  # noqa: E402
 from tyrant_tpu_torch.scene.procgen import benchmark_scene, terrain  # noqa: E402
 from tyrant_tpu_torch.scene.scene import Scene  # noqa: E402
 from tyrant_tpu_torch.scene.texture import TextureAtlas  # noqa: E402
+from tyrant_tpu_torch.parallel import sharded  # noqa: E402
+from tyrant_tpu_torch.utils import profiling  # noqa: E402
+from tyrant_tpu_torch.utils.exr import read_exr  # noqa: E402
 
 DEV = torch.device("cuda")
 STAGES = ("raygen", "extend", "shade", "connect", "sort", "accumulate")
@@ -2346,6 +2368,337 @@ def sampling_path(scene_host, cfg: RenderConfig, poses_run=(0, 1, 2),
     return out
 
 
+# --------------------------------------------------------------------------
+# the front ends (cli, viewer, utils) and the strip-parallel path
+# --------------------------------------------------------------------------
+
+def pose_argv(i: int) -> list:
+    """The CLI's ``--camera X Y Z H V`` of the benchmark's pose ``i``."""
+    cam = camera_for_pose(i)
+    return ["--camera", *(repr(float(v)) for v in cam.position),
+            repr(float(cam.horizontal_angle)), repr(float(cam.vertical_angle))]
+
+
+def run_cli(argv: list) -> tuple[str, str, float]:
+    """(stdout, stderr, seconds) of ``cli.main(argv)``, launches counted
+    from 0."""
+    out, err = io.StringIO(), io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        cli.main(argv)
+    torch.cuda.synchronize()
+    return out.getvalue(), err.getvalue(), time.perf_counter() - t0
+
+
+def stage_profile_check(ren, split: dict, busy_ms: float) -> dict:
+    """``utils.profiling.stage_profile`` on the main cell at pose 0 (an
+    eager renderer): each stage's median against phase 3's device split
+    of the same stage (``stage_split``), and the state left as it was."""
+    cam = camera_for_pose(0)
+    ren.step(cam, 4)
+    torch.cuda.synchronize()
+    before = {k: getattr(ren.state, k).clone() for k in STATE_FIELDS}
+    prof = profiling.stage_profile(ren, cam, n_steps=5)
+    torch.cuda.synchronize()
+    if not all(torch.equal(getattr(ren.state, k), v)
+               for k, v in before.items()):
+        raise AssertionError("stage_profile advanced the renderer's state")
+    if not all(np.isfinite(v) and v > 0 for v in prof.values()):
+        raise AssertionError(f"stage_profile: {prof}")
+    log("stage_profile pose 0 (medians of 5, CUDA events) against phase "
+        "3's device split: " + ", ".join(
+            f"{k} {prof[k + '_ms']:.3f}/{split[k]:.3f}"
+            for k in ("raygen", "extend", "shade", "connect"))
+        + f"; full step {prof['full_step_ms']:.3f} ms against "
+        f"{busy_ms:.3f} ms busy; stage sum {prof['stage_sum_ms']:.3f} ms")
+    return dict(prof, split_ms={k: split[k] for k in STAGES},
+                split_busy_ms=busy_ms)
+
+
+def png_pixels(data: bytes) -> np.ndarray:
+    """Decode what ``viewer._to_png_bytes`` writes (8-bit RGB, filter 0 on
+    every row) to [H, W, 3] uint8, with zlib (the card's machine has no
+    Pillow); raises on any other PNG."""
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError("not a PNG")
+    pos, idat, hdr = 8, [], None
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if tag == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat.append(body)
+        elif tag == b"IEND":
+            break
+        pos += 12 + n
+    w, h, depth, ctype, _, _, interlace = hdr
+    if (depth, ctype, interlace) != (8, 2, 0):
+        raise ValueError(f"unsupported PNG: depth {depth}, colour type "
+                         f"{ctype}, interlace {interlace}")
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    raw = raw.reshape(h, w * 3 + 1)
+    if raw[:, 0].any():
+        raise ValueError("unsupported PNG: a row filter other than 0")
+    return raw[:, 1:].reshape(h, w, 3).copy()
+
+
+VIEWER_SECONDS = 3.0  # how long viewer_path serves before it reads
+
+
+def viewer_path(scene, tables) -> dict:
+    """The HTTP viewer on the interactive preset (captured), served on a
+    free 127.0.0.1 port for VIEWER_SECONDS: frames that advance, ``/stats``,
+    ``/frame.png`` decoded to the frame's size, and an ``/input`` move
+    that moves the camera.  Then the display fetch alone: ``image(uint8=
+    True)`` and its copy into pinned memory, and the PNG encode at zlib
+    levels 1 (the viewer's) and 6 (the CLI's)."""
+    cfg = interactive_config()
+    ren = tr.Renderer(scene, cfg, tables=tables)
+    cam = camera_for_pose(0)
+    v = viewer.HttpViewer(ren, cam, port=0)
+    reset_launches(ren)
+    url = v.start()
+    try:
+        t_end = time.time() + VIEWER_SECONDS
+        while v.frames < 3 and time.time() < t_end + 60:
+            time.sleep(0.05)
+        time.sleep(max(0.0, t_end - time.time()))
+        stats0 = json.loads(urllib.request.urlopen(url + "stats",
+                                                   timeout=30).read())
+        png = urllib.request.urlopen(url + "frame.png", timeout=30).read()
+        pos0 = cam.position.copy()
+        req = urllib.request.Request(url + "input", method="POST",
+                                     data=json.dumps({"move": [1, 0, 0]})
+                                     .encode())
+        urllib.request.urlopen(req, timeout=30).read()
+        frames0 = v.frames
+        t1 = time.time()
+        while v.frames < frames0 + 3 and time.time() < t1 + 60:
+            time.sleep(0.05)
+        moved = not np.array_equal(cam.position, pos0)
+        frames = v.frames
+    finally:
+        v.stop()
+    launches = read_launches(ren, keys=LAUNCH_KEYS + NORMALS_KEYS)
+    img = png_pixels(png)
+    times = stats0["times"]
+    log(f"viewer (preset 1920x1080, 131072 rays, captured) on "
+        f"127.0.0.1:{v.port}: {stats0['frames']} frames in the first "
+        f"{VIEWER_SECONDS:.0f} s, {frames} in all; ms/frame median "
+        f"{np.median(times):.3f} (mean {np.mean(times):.3f}, over "
+        f"{len(times)} frames); /frame.png {len(png)} bytes -> "
+        f"{img.shape}; /input moved the camera: {moved}; launches "
+        f"{launches}, {ren.replayed_steps} steps replayed")
+    if not (stats0["frames"] >= 3 and frames >= frames0 + 3 and moved
+            and img.shape == (cfg.height, cfg.width, 3)
+            and launches["accumulate"] > 0
+            and launches["traverse"] + launches["traverse_wave"] > 0):
+        raise AssertionError(f"the viewer did not serve advancing frames: "
+                             f"{stats0}, {frames}, {moved}, {img.shape}, "
+                             f"{launches}")
+    # the display fetch and the encode, alone
+    ren.step(cam, 2)
+    pinned = torch.empty((cfg.height, cfg.width, 3), dtype=torch.uint8,
+                         pin_memory=DEV.type == "cuda")
+
+    def fetch():
+        pinned.copy_(ren.image(uint8=True), non_blocking=True)
+
+    fetch_ms = cuda_ms(fetch, 10)
+    host = pinned.numpy().copy()
+    enc = {}
+    for level in (1, 6):
+        t0 = time.perf_counter()
+        data = viewer._to_png_bytes(host, level)
+        enc[level] = ((time.perf_counter() - t0) * 1e3, len(data))
+        if not np.array_equal(png_pixels(data), host):
+            raise AssertionError("the PNG does not decode to its image")
+    log(f"display fetch 1920x1080: image(uint8=True) and the pinned copy "
+        f"{fetch_ms:.3f} ms (CUDA events, 10 back to back); PNG encode "
+        f"level 1 {enc[1][0]:.1f} ms ({enc[1][1]} bytes), level 6 "
+        f"{enc[6][0]:.1f} ms ({enc[6][1]} bytes) (host clock)")
+    return dict(frames_first_s=stats0["frames"], frames=frames,
+                ms_per_frame_median=float(np.median(times)),
+                ms_per_frame_mean=float(np.mean(times)),
+                png_bytes=len(png), moved=moved, launches=launches,
+                replayed_steps=ren.replayed_steps, fetch_ms=fetch_ms,
+                encode_ms={str(k): v[0] for k, v in enc.items()},
+                encode_bytes={str(k): v[1] for k, v in enc.items()})
+
+
+def cli_path(steps: int = 16) -> dict:
+    """The CLI on the loaded path's 1M-triangle PLY (with vertex normals)
+    at the default 1920x1080 and 2,097,152 rays: ``render`` of ``steps``
+    steps at pose 0 with ``--hdr`` .exr, its PNG decoded (zlib) bit for bit
+    the ``Renderer``'s ``image(uint8=True)`` after the same steps and its
+    EXR the radiance at half precision; ``info``; ``bvh-debug`` at 1080p;
+    ``bench --seconds 1 --json``."""
+    ply = str(SCENE_DIR / "terrain.ply")
+    out_dir = TRACE_DIR / "cli"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    png, exr = out_dir / "render.png", out_dir / "render.exr"
+    common = ["--scene", ply, "--builder", "native"]
+    cfg = RenderConfig()  # what the CLI builds from these flags
+    _, err, render_s = run_cli(["render", *common, *pose_argv(0), "--steps",
+                                str(steps), "--out", str(png),
+                                "--hdr", str(exr)])
+    launches = read_launches()
+    step_line = [ln for ln in err.splitlines() if "step " in ln][-1]
+    step_s = float(step_line.split()[2].rstrip("s"))
+    img = png_pixels(png.read_bytes())
+    # the same render through the Renderer
+    t0 = time.perf_counter()
+    sc = Scene.load(ply, builder="native")
+    n_tris = sc.stats["triangles"]
+    ren = tr.Renderer(sc, cfg)
+    del sc
+    load_s = time.perf_counter() - t0
+    ren.step(camera_for_pose(0), steps)
+    want = ren.image(uint8=True).cpu().numpy()
+    rad = ren.radiance().cpu().numpy()
+    hdr = read_exr(str(exr))
+    if not np.array_equal(img, want):
+        raise AssertionError(f"the CLI's PNG differs from the Renderer's "
+                             f"image on {int((img != want).sum())} values")
+    if not np.array_equal(hdr, rad.astype(np.float16).astype(np.float32)):
+        raise AssertionError("the CLI's EXR is not the radiance")
+    step_ms = cuda_ms(lambda: ren.step(camera_for_pose(0), 8), 1) / 8
+    del ren
+    log(f"cli render (the loaded PLY, 1920x1080, 2097152 rays, {steps} "
+        f"steps, captured): {render_s:.2f} s in all, the steps "
+        f"{step_s * 1e3 / steps:.3f} ms/step by its own clock (the "
+        f"capture's warm-up step included); the Renderer on the same "
+        f"scene {step_ms:.3f} ms/step after (CUDA events, 8 steps); PNG "
+        f"{png.stat().st_size} bytes bit for bit the Renderer's image, EXR "
+        f"{exr.stat().st_size} bytes its radiance; eager launches "
+        f"{launches} (the capture's warm-up step; the rest replays it); "
+        f"the scene loaded again in {load_s:.2f} s")
+    if not (launches["traverse"] > 0 and launches["accumulate"] > 0):
+        raise AssertionError(f"cli render launched no kernel: {launches}")
+
+    info, _, info_s = run_cli(["info", *common])
+    rows = [ln for ln in info.splitlines() if "kernel tables:" in ln]
+    tris = [ln for ln in info.splitlines() if "bvh.triangles:" in ln]
+    log(f"cli info ({info_s:.2f} s): " + " | ".join(
+        ln.strip() for ln in info.splitlines()
+        if ln.strip().startswith(("bvh.triangles", "bvh.nodes", "lights",
+                                  "device memory", "kernel tables",
+                                  "features"))))
+    if not (rows and tris and int(tris[0].split(":")[1]) == n_tris):
+        raise AssertionError(f"cli info: {info}")
+
+    heat = out_dir / "bvh_debug.png"
+    _, err, dbg_s = run_cli(["bvh-debug", *common, *pose_argv(0), "--out",
+                             str(heat)])
+    himg = png_pixels(heat.read_bytes())
+    vline = [ln for ln in err.splitlines() if ln.startswith("visits:")][0]
+    log(f"cli bvh-debug 1920x1080 ({dbg_s:.2f} s, the plain walk on the "
+        f"card): {vline}; heatmap {himg.shape}, {int((himg[..., 1] > 0).sum())}"
+        f" green and {int((himg[..., 0] > 0).sum())} red pixels")
+    if himg.shape != (cfg.height, cfg.width, 3) or not himg.any():
+        raise AssertionError(f"cli bvh-debug: {vline}, {himg.shape}")
+
+    bench_out, _, bench_s = run_cli(["bench", *common, "--seconds", "1",
+                                     "--json"])
+    blaunch = read_launches()
+    d = json.loads(bench_out.strip().splitlines()[-1])
+    log(f"cli bench --seconds 1 --json ({bench_s:.2f} s): " + ", ".join(
+        f"pose {p['pose']} {p['avg_ms']:.3f} ms/step "
+        f"{p['total_mrays_per_s']:.3f} Mrays/s" for p in d["poses"])
+        + f"; launches {blaunch}")
+    if len(d["poses"]) != 3 or not d["total_mrays_per_s"] > 0 \
+            or not blaunch["traverse"]:
+        raise AssertionError(f"cli bench: {d}, {blaunch}")
+    return dict(render_s=render_s, render_ms_per_step_cli=step_s * 1e3 / steps,
+                renderer_ms_per_step=step_ms, render_launches=launches,
+                load_s=load_s, info_s=info_s, bvh_debug_s=dbg_s,
+                bvh_debug=vline, bench_s=bench_s, bench=d,
+                bench_launches=blaunch)
+
+
+def strips_path(scene, tables, cfg: RenderConfig, reps: int = 8) -> dict:
+    """The strip-parallel path on the card: ``ShardedRenderer`` with one
+    strip (``["cuda:0"]``) for 4 steps bit for bit the eager ``Renderer``;
+    two strips (``["cuda:0"] * 2``: 1920x540 each, the full queue each) at
+    full width, ms/step over ``reps`` steps after 2 and each strip's
+    kernel launches; then the two strips at 32x32 on the card against the
+    same two strips on the CPU."""
+    cam = camera_for_pose(0)
+    one = sharded.ShardedRenderer(scene, cfg, devices=["cuda:0"],
+                                  tables=tables)
+    ren = tr.Renderer(scene, cfg, tables=tables)
+    reset_launches()
+    one.step(cam, 4)
+    torch.cuda.synchronize()
+    one_launch = read_launches()
+    ren.step(cam, 4)
+    torch.cuda.synchronize()
+    if not states_equal(one.states[0], ren.state):
+        bad = [k for k in STATE_FIELDS if not torch.equal(
+            getattr(one.states[0], k), getattr(ren.state, k))]
+        raise AssertionError(f"one strip differs from the Renderer in {bad}")
+    del one, ren
+    log(f"strips, one strip on cuda:0: bit for bit the eager Renderer on "
+        f"every RenderState field after 4 steps; launches {one_launch}")
+    if one_launch["traverse"] != 8 or one_launch["accumulate"] != 4:
+        raise AssertionError(f"one strip's launches: {one_launch}")
+
+    two = sharded.ShardedRenderer(scene, cfg, devices=["cuda:0"] * 2,
+                                  tables=tables)
+    two.step(cam, 2)
+    torch.cuda.synchronize()
+    reset_launches()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    a.record()
+    two.step(cam, reps)
+    b.record()
+    torch.cuda.synchronize()
+    ms = a.elapsed_time(b) / reps
+    wall = (time.perf_counter() - t0) * 1e3 / reps
+    total = read_launches()
+    # one more step through the strips' step function, split by strip
+    per_strip = [{} for _ in two.mesh]
+    step = sharded.make_sharded_step(cfg, two.mesh)
+    two.states = step(two.states, two.replicas,
+                      {d: cam.to_device(cfg, d) for d in two.replicas},
+                      launches=per_strip)
+    img = two.image()
+    counted = sum(float(st.accum[:, 3].double().sum()) for st in two.states)
+    log(f"strips, two on cuda:0 (1920x540 each, {cfg.num_rays} rays each): "
+        f"{ms:.3f} ms/step (host {wall:.3f}) over {reps} steps, CUDA "
+        f"events; launches {total}, by strip in one more step {per_strip}; "
+        f"image {tuple(img.shape)}; {counted:.0f} paths counted over "
+        f"{reps + 3} steps")
+    if total["traverse"] != 4 * reps or total["accumulate"] != 2 * reps \
+            or per_strip != [{"traverse": 2, "accumulate": 1}] * 2 \
+            or not bool(torch.isfinite(img).all()) \
+            or tuple(img.shape) != (cfg.height, cfg.width, 3):
+        raise AssertionError(f"two strips: {total}, {per_strip}, "
+                             f"{img.shape}")
+    del two
+
+    # the two strips at 32x32, card against CPU (phase 4's small terrain)
+    small = dataclasses.replace(cfg, width=32, height=32, num_rays=16_384)
+    sc = Scene.from_triangles(*terrain(n_quads=48, towers=4))
+    imgs = []
+    for devs in (["cuda:0"] * 2, ["cpu"] * 2):
+        r = sharded.ShardedRenderer(sc, small, devices=devs)
+        r.step(cam, 6)
+        imgs.append(r.image().cpu())
+    mad = float((imgs[0] - imgs[1]).abs().mean())
+    log(f"strips card vs cpu, two strips at 32x32/16384 rays/6 steps: mean "
+        f"|diff| {mad:.3g}")
+    if not mad < 0.03:
+        raise AssertionError(f"two strips: card and CPU differ: {mad}")
+    return dict(one_strip_bit_for_bit=True, one_strip_launches=one_launch,
+                two_ms_per_step=ms, two_wall_ms_per_step=wall,
+                two_launches=total, two_strip_launches=per_strip,
+                card_vs_cpu=mad)
+
+
 def light_table_mb(sd) -> float:
     """Device MB of the light tables."""
     return sum(getattr(sd, k).numel() * 4 for k in (
@@ -2425,12 +2778,20 @@ def main() -> int:
     mark("phase 4")
     bench = bench_path(ren.scene, cfg)
     mark("pose harness")
+    prof = stage_profile_check(ren, poses[0]["device_split_ms"],
+                               poses[0]["device_busy_ms_per_step"])
+    view = viewer_path(ren.scene, ren.tables)
+    mark("front ends: stage_profile, viewer")
+    strips = strips_path(ren.scene, ren.tables, cfg_eager)
+    mark("strips")
     del ren
     torch.cuda.empty_cache()
     ld = loaded_path(cfg_eager)
     mark("loaded")
     sf = sphere_free_path(cfg_eager)
     mark("sphere-free")
+    fe_cli = cli_path()
+    mark("front ends: cli")
     lt = lights_path(scene_host, cfg)
     mark("lights")
     fg = fog_path(scene_host, cfg)
@@ -2533,6 +2894,18 @@ def main() -> int:
             f["launches"] for f in smp["blur_flythrough"].values()]
         return sum(r.get(k, 0) for r in runs for k in keys)
 
+    def frontend_launches(key):
+        """A kernel's launches on the front ends and the strips: the CLI's
+        render (its eager warm-up step) and bench, the viewer (replays
+        counted), one strip, and the two strips' timed steps and the step
+        split by strip."""
+        return {"cli_launches": fe_cli["render_launches"][key]
+                + fe_cli["bench_launches"][key],
+                "viewer_launches": view["launches"][key],
+                "strips_launches": strips["one_strip_launches"][key]
+                + strips["two_launches"][key]
+                + sum(sl.get(key, 0) for sl in strips["two_strip_launches"])}
+
     regs = build.registers()
     result = {"kernels": [
         {"name": "traverse", "route": "cuda",
@@ -2551,6 +2924,7 @@ def main() -> int:
          "fog_launches": path_launches(fg, "traverse", "eager", "captured",
                                        "lights"),
          "sampling_launches": sampling_launches("traverse"),
+         **frontend_launches("traverse"),
          "registers": {k: v for k, v in regs.items()
                        if k.startswith("traverse_kernel<")},
          **entry("mono"), **normals_entry("mono", "normals-on-auto")},
@@ -2588,6 +2962,7 @@ def main() -> int:
          "sampling_launches": sampling_launches("accumulate",
                                                 "accumulate_moment2"),
          "moment2_launches": sampling_launches("accumulate_moment2"),
+         **frontend_launches("accumulate"),
          "registers": {k: v for k, v in regs.items()
                        if k.startswith("accum_kernel")},
          "max_abs_err": max(acc["max_abs_err"], at_step["max_abs_err"],
@@ -2642,7 +3017,9 @@ def main() -> int:
                     "sphere_free": sf, "lights": lt, "captured": cap,
                     "textures": tx, "fog": fg, "sampling": smp,
                     "preset_normals": nrm, "flythrough": fly,
-                    "registers": regs}))
+                    "registers": regs, "stage_profile": prof,
+                    "viewer": view, "cli": fe_cli, "strips": strips,
+                    "seconds_by_path": secs}))
     log(gpu)
     log(json.dumps(result))
     log(json.dumps({"ok": True, "device": {

@@ -5,9 +5,9 @@ main path's queues, the denoised display path eager and captured, the
 stream kernel's overflow, the equivalence gate, the pose harness, the
 loaded scene, the sphere-free scene, the captured step against the eager
 one, the normals output of both traversal kernels, the interactive
-fly-through, the lights path, the textures path, the fog path and the
-sampling path, with the fused moment2 mode of the accumulation) at small
-sizes, so the
+fly-through, the lights path, the textures path, the fog path, the
+sampling path, with the fused moment2 mode of the accumulation, the
+strips and the CLI) at small sizes, so the
 card's checks live in one place.  The kernels have no CPU mode, so
 these tests skip without a CUDA device.  This file imports no JAX, so it
 also runs where JAX is not installed:
@@ -650,3 +650,69 @@ def test_captured_step_bit_equal_under_new_fields(cuda, over):
                                    poses_run=(0,), chain=False)
     assert cap["equal_after_6"]
     assert cap["launches"]["traverse"] == 2 * 14
+
+
+def test_strips_at_small_size(cuda):
+    """chip_smoke.strips_path at 64x64 (two strips of 64x32): one strip
+    bit for bit the eager Renderer, the two strips launching both kernels
+    every step, each of them in the step split by strip, the two against
+    the CPU."""
+    cfg = small_config(width=64, height=64, num_rays=1 << 14,
+                       fuse_step_chains="off")
+    sd = Scene.from_triangles(*terrain(n_quads=32, towers=3),
+                              builder="numpy").to_device(cuda)
+    out = chip_smoke.strips_path(sd, ktrav.PacketTables(sd.bvh), cfg, reps=3)
+    assert out["one_strip_bit_for_bit"] and out["card_vs_cpu"] < 0.03
+    assert out["two_launches"]["traverse"] == 12
+    assert out["two_launches"]["accumulate"] == 6
+    assert out["two_strip_launches"] == [{"traverse": 2, "accumulate": 1}] * 2
+
+
+def test_strip_step_with_row_offset_on_the_card(cuda):
+    """Rows 16-31 of a 32x32 frame stepped on the card (local_height 16,
+    row_offset 16) and on the CPU from the same start: the frame counter
+    exact, every pixel id local to the strip, the resolved strips within
+    0.03 (the survivors, and so the scan position, follow the float
+    arithmetic of each device)."""
+    from tyrant_tpu_torch.ops.tonemap import resolve
+    cfg = small_config(width=32, height=32, num_rays=1 << 12)
+    sc = Scene.from_triangles(*terrain(n_quads=24, towers=2),
+                              builder="numpy")
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        sd = sc.to_device(dev)
+        tables = ktrav.PacketTables(sd.bvh)
+        st = tr.init_state(cfg, dev, local_height=16)
+        cam = chip_smoke.camera_for_pose(0).to_device(cfg, dev)
+        sun = tr.skymod.sun_direction_from_position((0.05, 0.3), dev)
+        for _ in range(4):
+            st = tr.render_step(st, sd, cam, sun, cfg=cfg, tables=tables,
+                                local_height=16, row_offset=16)
+        out.append(st)
+    card, cpu = out
+    assert card.accum.shape == (32 * 16, 4)
+    assert int(card.frame) == int(cpu.frame) == 5
+    assert 0 <= int(card.pixel.min()) and int(card.pixel.max()) < 32 * 16
+    mad = (resolve(card.accum.cpu(), 32, 16)
+           - resolve(cpu.accum, 32, 16)).abs().mean()
+    assert float(mad) < 0.03, float(mad)
+
+
+def test_cli_render_on_the_card(cuda, tmp_path):
+    """``cli render`` on the card: its PNG, decoded with zlib, bit for bit
+    the Renderer's image after the same steps; ``bvh-debug`` writes its
+    heatmap."""
+    from tyrant_tpu_torch import cli
+    from tyrant_tpu_torch.config import RenderConfig
+    out = tmp_path / "x.png"
+    argv = ["--width", "64", "--height", "48", "--rays", "4096",
+            *chip_smoke.pose_argv(0)]
+    cli.main(["render", *argv, "--steps", "5", "--out", str(out)])
+    r = tr.Renderer(Scene.load(None), RenderConfig(width=64, height=48,
+                                                   num_rays=4096))
+    r.step(chip_smoke.camera_for_pose(0), 5)
+    assert np.array_equal(chip_smoke.png_pixels(out.read_bytes()),
+                          r.image(uint8=True).cpu().numpy())
+    cli.main(["bvh-debug", *argv, "--out", str(tmp_path / "h.png")])
+    assert chip_smoke.png_pixels((tmp_path / "h.png").read_bytes()).shape \
+        == (48, 64, 3)

@@ -6,7 +6,8 @@ threaded links as a batched PyTorch loop: every iteration advances each
 live ray by one node, and finished rays leave the batch, so the work per
 iteration shrinks with the live count.  This is the plain version of the
 CUDA traversal kernel (``ops/kernels/traverse.py``) and the CPU path of
-the renderer; it runs on any device.
+the renderer; it runs on any device.  :func:`traversal_depth_map` counts
+each ray's node visits for the CLI's ``bvh-debug`` heatmap.
 """
 
 from __future__ import annotations
@@ -248,3 +249,13 @@ def any_hit(origin, direction, max_dist, bvh: BVHDevice, active=None,
     live = torch.ones((n,), dtype=torch.bool, device=origin.device) \
         if active is None else active
     return _walk(origin, direction, max_dist, bvh, False, live, stats)
+
+
+def traversal_depth_map(origin, direction, bvh: BVHDevice):
+    """BVH-quality heatmap (the reference's BVH_DEBUG mode): the closest
+    hit of each ray and the nodes its walk visited, the root included, one
+    a step of the walk as in the JAX package.  Returns (t [N], prim_id [N]
+    i32, visits [N] i32)."""
+    stats: dict = {}
+    t, hit_id = closest_hit(origin, direction, bvh, stats=stats)
+    return t, hit_id, stats["visits"].to(torch.int32)

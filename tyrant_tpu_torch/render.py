@@ -169,8 +169,14 @@ def _moments(cfg: RenderConfig) -> bool:
     return cfg.adaptive_sampling == "on" or cfg.track_variance == "on"
 
 
-def init_state(cfg: RenderConfig, device) -> RenderState:
-    n, p = cfg.num_rays, cfg.width * cfg.height
+def init_state(cfg: RenderConfig, device,
+               local_height: int | None = None) -> RenderState:
+    """A fresh state for the whole frame, or with ``local_height`` for
+    one row strip of that many rows (the strip-parallel path,
+    :mod:`~tyrant_tpu_torch.parallel.sharded`): its accumulation and
+    adaptive visit order cover the strip's pixels, in local ids."""
+    h = cfg.height if local_height is None else local_height
+    n, p = cfg.num_rays, cfg.width * h
 
     def scalar(v):
         return torch.tensor(v, dtype=torch.int64, device=device)
@@ -269,12 +275,12 @@ def _primary_dirs(cfg: RenderConfig, camera, ni, nj):
     return d, off, None
 
 
-def _scan_total(cfg: RenderConfig) -> int:
+def _scan_total(cfg: RenderConfig, local_height: int | None = None) -> int:
     """Pixels one round-robin raygen pass covers: the crop window's, else
-    the frame's."""
+    the frame's, or a row strip's of ``local_height`` rows."""
     if cfg.crop is not None:
         return int(cfg.crop[2]) * int(cfg.crop[3])
-    return cfg.width * cfg.height
+    return cfg.width * (cfg.height if local_height is None else local_height)
 
 
 def _salted_frame(cfg: RenderConfig, frame):
@@ -287,15 +293,20 @@ def _salted_frame(cfg: RenderConfig, frame):
 
 
 def _raygen(cfg: RenderConfig, camera: CameraParams, start_position, frame,
-            perm=None, sample_base=None, cam_prev=None):
+            perm=None, sample_base=None, cam_prev=None,
+            local_height: int | None = None, row_offset: int = 0):
     """Fresh camera rays for every queue slot (the merge keeps carried
     survivors in the tail slots).  ``perm``: the adaptive visit order;
     ``sample_base``: the Sobol pass counter; ``cam_prev``: the previous
-    pose that motion blur lerps from.  ``frame`` is the salted one."""
+    pose that motion blur lerps from.  ``frame`` is the salted one.  A
+    row strip (``local_height`` rows from image row ``row_offset``) scans
+    its own pixels in local ids; the offset moves each ray's image row and
+    enters every seed, so strips draw independent streams."""
     n = cfg.num_rays
     w, h = cfg.width, cfg.height
+    local_h = h if local_height is None else local_height
     dev = camera.position.device
-    total = _scan_total(cfg)
+    total = _scan_total(cfg, local_height)
     gen_index = torch.arange(n, dtype=torch.int64, device=dev)
     scan = (start_position + gen_index) % total
     tiled = cfg.raygen_order == "tiled8"
@@ -318,7 +329,7 @@ def _raygen(cfg: RenderConfig, camera: CameraParams, start_position, frame,
         pixel = perm[scan].to(torch.int64)
         x_i = pixel % w
         y_i = pixel // w
-    elif tiled and w % 8 == 0 and h % 8 == 0:
+    elif tiled and w % 8 == 0 and local_h % 8 == 0:
         # 8x8 screen tiles: consecutive rays share a tile (coherent packets)
         tile = scan // 64
         within = scan % 64
@@ -330,22 +341,21 @@ def _raygen(cfg: RenderConfig, camera: CameraParams, start_position, frame,
         x_i = pixel % w
         y_i = pixel // w
     x = x_i.to(torch.float32)
-    y = y_i.to(torch.float32)
+    y = (y_i + row_offset if row_offset else y_i).to(torch.float32)
 
-    # every seed keeps the JAX package's row-offset part (0: one image strip)
     salt = (cfg.seed,) if cfg.seed else ()
     sample_idx = None
     if cfg.sampler == "sobol":
         # pixel p's k-th path is the one made on wrap k of the counter
         sample_idx = (sample_base + (start_position + gen_index) // total) \
             & 0xFFFFFFFF
-        key = rng.seed_prefix(pixel, 0, *salt)
+        key = rng.seed_prefix(pixel, row_offset, *salt)
         ju, jv = sobol.sample_2d(sample_idx,
                                  rng.seed_from(0x50B01, prefix=key))
         px = x - ju
         py = y - jv
     else:
-        seed = rng.seed_from(frame, gen_index, 0, 0x5EED)
+        seed = rng.seed_from(frame, gen_index, row_offset, 0x5EED)
         seed, uv = rng.random_2d_stratified(seed)
         px = x - uv[..., 0]  # the reference subtracts the jitter
         py = y - uv[..., 1]
@@ -357,7 +367,8 @@ def _raygen(cfg: RenderConfig, camera: CameraParams, start_position, frame,
         # each ray sees the pose lerped from the previous one at a shutter
         # time s in (1 - shutter, 1], drawn on a side stream (the other
         # streams stay as without blur)
-        _, ut = rng.random_float(rng.seed_from(frame, gen_index, 0, 0x7131))
+        _, ut = rng.random_float(rng.seed_from(frame, gen_index, row_offset,
+                                               0x7131))
         s_t = (1.0 - cfg.motion_blur * ut)[:, None]
 
         def lerp(cur, prev):
@@ -702,7 +713,8 @@ def _fog_on(cfg: RenderConfig) -> bool:
     return cfg.fog == "on" and (cfg.fog_sigma_s + cfg.fog_sigma_a) > 0.0
 
 
-def _shade_fog_sample(cfg: RenderConfig, rays, t, frame, slot, sob1=None):
+def _shade_fog_sample(cfg: RenderConfig, rays, t, frame, slot, sob1=None,
+                      row_offset: int = 0):
     """One free-flight draw a segment against its slab overlap: a
     collision before the surface makes the segment's event a medium event
     at t = t_enter + s.  Conditioning on no collision cancels the
@@ -719,7 +731,7 @@ def _shade_fog_sample(cfg: RenderConfig, rays, t, frame, slot, sob1=None):
     else:
         # side stream: the fog-off streams stay untouched
         _, u_f = rng.random_float(
-            rng.seed_from(frame, rays["pixel"], slot, 0, 0xF06))
+            rng.seed_from(frame, rays["pixel"], slot, row_offset, 0xF06))
     if cfg.fog_falloff:
         f_rho0, f_k = _fog_density_coeffs(rays["origin"], d, f_ta,
                                           cfg.fog_falloff)
@@ -805,7 +817,7 @@ def _normal_mapped(scene: SceneData, arow, uv_t, normal_tri,
 
 def _shade_surface_fetch(cfg: RenderConfig, scene: SceneData, rays, o,
                          t_safe, ident, is_tri, hit, frame, slot,
-                         tri_normal=None):
+                         tri_normal=None, row_offset: int = 0):
     """Hit-surface data: sphere rows by index, triangle rows from the
     tri_shade table, and under the scene's gates one tri_attr row a ray
     for smooth normals and the texture stack (albedo times the triangle
@@ -900,7 +912,8 @@ def _shade_surface_fetch(cfg: RenderConfig, scene: SceneData, rays, o,
                 # the two lobes, evaluated stochastically), from a side
                 # stream
                 _, u_m = rng.random_float(
-                    rng.seed_from(frame, rays["pixel"], slot, 0, 0x4E7A1))
+                    rng.seed_from(frame, rays["pixel"], slot, row_offset,
+                                  0x4E7A1))
                 m_tex = torch.where(rtexid >= 0, rrow[:, 1], 1.0)
                 pick_ggx = metal_tri & (u_m < m_tex)
                 refl_tri = torch.where(pick_ggx, GGX, torch.where(
@@ -1008,7 +1021,8 @@ def _pick_light(cfg: RenderConfig, scene: SceneData, lu, total: int):
     return pick, scene.light_inv_pdf[pick.long()]
 
 
-def _env_nee_sample(scene: SceneData, rays, frame, slot, sob2=None):
+def _env_nee_sample(scene: SceneData, rays, frame, slot, sob2=None,
+                    row_offset: int = 0):
     """One environment draw a ray (the sun slot of NEE under MIS): an
     alias row turns two uniforms into a texel whose radiance and
     solid-angle pdf ride the row, two more jitter the direction inside
@@ -1020,7 +1034,7 @@ def _env_nee_sample(scene: SceneData, rays, frame, slot, sob2=None):
         eu1, eu2 = sob2(11)
         ej1, ej2 = sob2(12)
     else:
-        es = rng.seed_from(frame, rays["pixel"], slot, 0, 0xE571)
+        es = rng.seed_from(frame, rays["pixel"], slot, row_offset, 0xE571)
         es, eu1 = rng.random_float(es)
         es, eu2 = rng.random_float(es)
         es, ej1 = rng.random_float(es)
@@ -1043,7 +1057,8 @@ def _env_nee_sample(scene: SceneData, rays, frame, slot, sob2=None):
 
 def _shade_nee_samples(cfg: RenderConfig, scene: SceneData,
                        sky_params: skymod.SkyParams, sun_dir, rays, o,
-                       normal, frame, slot, seed, sob=None):
+                       normal, frame, slot, seed, sob=None,
+                       row_offset: int = 0):
     """The NEE samples: the sun-cone sample (or, with an envmap under MIS,
     the environment draw; with an envmap without MIS, none: the light
     takes every NEE sample), the 50/50 strategy coin, and the light pick
@@ -1059,7 +1074,7 @@ def _shade_nee_samples(cfg: RenderConfig, scene: SceneData,
     nee = dict(sun_radiance_env=None, e_pdf=None)
     if env_nee:
         sun_sample, nee["sun_radiance_env"], nee["e_pdf"] = \
-            _env_nee_sample(scene, rays, frame, slot, sob2)
+            _env_nee_sample(scene, rays, frame, slot, sob2, row_offset)
     elif scene.has_envmap:
         sun_sample = sun_dir.expand(n, 3)  # no analytic sun under an envmap
     elif sob2 is not None:
@@ -1076,7 +1091,7 @@ def _shade_nee_samples(cfg: RenderConfig, scene: SceneData,
     else:
         # side stream: the coin leaves the main shade stream untouched
         _, cs_u = rng.random_float(
-            rng.seed_from(frame, rays["pixel"], slot, 0, 0xC0F1))
+            rng.seed_from(frame, rays["pixel"], slot, row_offset, 0xC0F1))
     choose_sun = cs_u < 0.5
     inv_p_sun = inv_p_light = 2.0
     if scene.has_envmap and not env_nee:
@@ -1097,7 +1112,8 @@ def _shade_nee_samples(cfg: RenderConfig, scene: SceneData,
             lu = sob1(4)
         else:
             _, lu = rng.random_float(
-                rng.seed_from(frame, rays["pixel"], slot, 0, 0x11F7))
+                rng.seed_from(frame, rays["pixel"], slot, row_offset,
+                              0x11F7))
         pick, n_lights = _pick_light(cfg, scene, lu, total)
         if scene.n_spheres == 0:
             # only triangle and delta lights: inert stand-ins (radius 1
@@ -1380,7 +1396,8 @@ def _shade_nee_weights(cfg: RenderConfig, scene: SceneData,
 
 
 def _glass_eta(cfg: RenderConfig, scene: SceneData, rays, direct, hit,
-               refl, is_tri, rough_tri, frame, slot, sob1=None):
+               refl, is_tri, rough_tri, frame, slot, sob1=None,
+               row_offset: int = 0):
     """The REFR index of refraction: the reference's 1.2, a REFR
     triangle's own IOR under ``has_var_ior``, and under ``cfg.dispersion``
     one wavelength channel per glass event.  Returns (eta, direct): eta a
@@ -1401,7 +1418,8 @@ def _glass_eta(cfg: RenderConfig, scene: SceneData, rays, direct, hit,
             u_w = sob1(13)
         else:
             _, u_w = rng.random_float(
-                rng.seed_from(frame, rays["pixel"], slot, 0, 0xD15B))
+                rng.seed_from(frame, rays["pixel"], slot, row_offset,
+                              0xD15B))
         pick = torch.clamp((u_w * 3.0).to(torch.int32), max=2)
         pos = direct > 0
         poly = (pos[:, 0].to(torch.int32) + pos[:, 1].to(torch.int32)
@@ -1422,7 +1440,7 @@ def _shade_bounce(cfg: RenderConfig, scene: SceneData, rays, d, o, normal,
                   direct, hit, refl, is_tri, is_sphere, srow, rough_tri,
                   outside, is_diff, is_phong, w_refl, obj_color, t_safe,
                   seed, frame, slot, ggx=None, bsdf_pdf_toward=None,
-                  is_fog=None, is_pass=None, sob=None):
+                  is_fog=None, is_pass=None, sob=None, row_offset: int = 0):
     """Bounce sampling: DIFF cosine hemisphere, SPEC mirror, REFR Fresnel/
     TIR/Beer-Lambert (per-triangle IOR, dispersion), PHONG lobe with
     rejection, and under the scene's flags the GGX VNDF lobe (``ggx`` =
@@ -1449,7 +1467,7 @@ def _shade_bounce(cfg: RenderConfig, scene: SceneData, rays, d, o, normal,
 
     # REFR: Schlick Fresnel + TIR, the reference's reversed-IoR convention
     eta, direct = _glass_eta(cfg, scene, rays, direct, hit, refl, is_tri,
-                             rough_tri, frame, slot, sob1)
+                             rough_tri, frame, slot, sob1, row_offset)
     one = torch.ones_like(t_safe)
     n1 = torch.where(outside, one * eta, one)
     n2 = torch.where(outside, one, one * eta)
@@ -1497,7 +1515,8 @@ def _shade_bounce(cfg: RenderConfig, scene: SceneData, rays, d, o, normal,
         if sob2 is not None:
             gu1, gu2 = b_u, b_v
         else:
-            gseed = rng.seed_from(frame, rays["pixel"], slot, 0, 0x66C5)
+            gseed = rng.seed_from(frame, rays["pixel"], slot, row_offset,
+                                  0x66C5)
             gseed, gu1 = rng.random_float(gseed)
             _, gu2 = rng.random_float(gseed)
         view = -d
@@ -1527,7 +1546,8 @@ def _shade_bounce(cfg: RenderConfig, scene: SceneData, rays, d, o, normal,
         if sob2 is not None:
             ru1, ru2 = b_u, b_v
         else:
-            rsd = rng.seed_from(frame, rays["pixel"], slot, 0, 0x4F61)
+            rsd = rng.seed_from(frame, rays["pixel"], slot, row_offset,
+                                0x4F61)
             rsd, ru1 = rng.random_float(rsd)
             _, ru2 = rng.random_float(rsd)
         rr_h = ggx_vndf_sample_from_uniforms(-d, normal, rr_alpha, ru1, ru2)
@@ -1559,7 +1579,7 @@ def _shade_bounce(cfg: RenderConfig, scene: SceneData, rays, d, o, normal,
         if sob2 is not None:
             fu1, fu2 = sob2(10)
         else:
-            fs = rng.seed_from(frame, rays["pixel"], slot, 0, 0xF09)
+            fs = rng.seed_from(frame, rays["pixel"], slot, row_offset, 0xF09)
             fs, fu1 = rng.random_float(fs)
             _, fu2 = rng.random_float(fs)
         fog_dir = hg_sample_from_uniforms(d, cfg.fog_g, fu1, fu2)
@@ -1599,16 +1619,16 @@ def _shade_bounce(cfg: RenderConfig, scene: SceneData, rays, d, o, normal,
     return seed, new_dir, direct, new_last_spec, next_bsdf_pdf, origin_out
 
 
-def _sobol_draws(cfg: RenderConfig, rays):
+def _sobol_draws(cfg: RenderConfig, rays, row_offset: int = 0):
     """(sob1, sob2): shade's Sobol draws, each of a purpose (the JAX
     package's numbers), at every ray's own sample index, keyed by (pixel,
-    row offset 0, bounces * 16 + purpose, cfg.seed when set, 0x50B0): a
+    row offset, bounces * 16 + purpose, cfg.seed when set, 0x50B0): a
     path's k-th sample takes point k of one sequence a dimension.  The
     (pixel, row offset) part of the key is hashed once for all
     purposes."""
     s_idx = rays["sample_idx"]
     salt = (cfg.seed,) if cfg.seed else ()
-    prefix = rng.seed_prefix(rays["pixel"], 0)
+    prefix = rng.seed_prefix(rays["pixel"], row_offset)
     dim = rays["bounces"] * 16
 
     def key(purpose):
@@ -1619,11 +1639,14 @@ def _sobol_draws(cfg: RenderConfig, rays):
 
 
 def _shade(cfg: RenderConfig, scene: SceneData, sky_params: skymod.SkyParams,
-           sun_dir, rays, t, ident, is_tri, frame, tri_normal=None):
+           sun_dir, rays, t, ident, is_tri, frame, tri_normal=None,
+           row_offset: int = 0):
     """Shade every queue slot.  Returns (color, survive, next_rays,
-    shadow).  ``tri_normal``: the traversal's hit normals, which a
-    ``tri_default_mat`` scene shades from without the tri_shade gather
-    (:func:`_shade_surface_fetch`).  Under fog a segment may end in a
+    shadow).  ``row_offset``: the first image row of the strip the rays
+    belong to, in every seed (0 for the whole frame).  ``tri_normal``:
+    the traversal's hit normals, which a ``tri_default_mat`` scene shades
+    from without the tri_shade gather (:func:`_shade_surface_fetch`).
+    Under fog a segment may end in a
     medium event before its surface (pseudo-material FOG); a cutout hit
     below its alpha threshold (0.5, or a uniform on a blend triangle)
     passes through (PASS): no shading, no NEE, no colour."""
@@ -1632,12 +1655,14 @@ def _shade(cfg: RenderConfig, scene: SceneData, sky_params: skymod.SkyParams,
     d = rays["direction"]
     slot = torch.arange(n, dtype=torch.int64, device=d.device)
 
-    sob = _sobol_draws(cfg, rays) if cfg.sampler == "sobol" else None
+    sob = _sobol_draws(cfg, rays, row_offset) if cfg.sampler == "sobol" \
+        else None
     fog_on = _fog_on(cfg)
     is_fog = None
     if fog_on:
         t, is_fog = _shade_fog_sample(cfg, rays, t, frame, slot,
-                                      None if sob is None else sob[0])
+                                      None if sob is None else sob[0],
+                                      row_offset)
 
     hit = t < VERY_FAR
     t_safe = torch.where(hit, t, torch.zeros_like(t))
@@ -1646,7 +1671,7 @@ def _shade(cfg: RenderConfig, scene: SceneData, sky_params: skymod.SkyParams,
     (is_sphere, srow, normal, refl_tri, color_tri, rough_tri, em_tri,
      cut_alpha, blend_tri) = _shade_surface_fetch(
         cfg, scene, rays, o, t_safe, ident, is_tri, hit, frame, slot,
-        tri_normal)
+        tri_normal, row_offset)
     refl = torch.where(is_sphere, srow[:, 10].to(torch.int32), refl_tri)
     refl = torch.where(hit, refl, torch.full_like(refl, DIFF))
     obj_color = torch.where(_col(is_sphere), srow[:, 4:7], color_tri)
@@ -1670,7 +1695,8 @@ def _shade(cfg: RenderConfig, scene: SceneData, sky_params: skymod.SkyParams,
             # stochastic transparency: a blend hit shades with probability
             # alpha, from a side stream
             _, u_b = rng.random_float(
-                rng.seed_from(frame, rays["pixel"], slot, 0, 0xB1E2D))
+                rng.seed_from(frame, rays["pixel"], slot, row_offset,
+                              0xB1E2D))
             thresh = torch.where(blend_tri,
                                  torch.clamp(u_b, 1e-6, 1.0 - 1e-6), 0.5)
         is_pass = hit & is_tri & (cut_alpha < thresh)
@@ -1704,9 +1730,9 @@ def _shade(cfg: RenderConfig, scene: SceneData, sky_params: skymod.SkyParams,
         cfg, scene, rays, d, normal, t_safe, hit, refl, refl_tri, color_tri,
         rough_tri, is_sphere, srow, em_tri, direct)
 
-    seed = rng.seed_from(frame, rays["pixel"], slot, 0, 0x5ADE)
+    seed = rng.seed_from(frame, rays["pixel"], slot, row_offset, 0x5ADE)
     nee = _shade_nee_samples(cfg, scene, sky_params, sun_dir, rays, o,
-                             normal, frame, slot, seed, sob)
+                             normal, frame, slot, seed, sob, row_offset)
     (shadow_ok, shadow_dir, shadow_color, shadow_maxd, w_refl, is_diff,
      is_phong, bsdf_pdf_toward, p_sun_sa) = _shade_nee_weights(
         cfg, scene, sky_params, d, o, normal, direct, hit, refl, sun_dir,
@@ -1717,7 +1743,8 @@ def _shade(cfg: RenderConfig, scene: SceneData, sky_params: skymod.SkyParams,
                       is_phong, w_refl, obj_color, t_safe, nee["seed"],
                       frame, slot, ggx=ggx,
                       bsdf_pdf_toward=bsdf_pdf_toward if mis else None,
-                      is_fog=is_fog, is_pass=is_pass, sob=sob)
+                      is_fog=is_fog, is_pass=is_pass, sob=sob,
+                      row_offset=row_offset)
 
     # Russian roulette
     p = torch.clamp(direct.amax(-1), max=1.0)
@@ -1888,17 +1915,20 @@ def compaction_sort_key(next_rays, survive, node_packed, sent: int):
 
 
 def merge_queue(cfg: RenderConfig, state: RenderState,
-                camera: CameraParams, cam_prev: CameraParams | None = None
+                camera: CameraParams, cam_prev: CameraParams | None = None,
+                local_height: int | None = None, row_offset: int = 0
                 ) -> dict:
     """The step's ray queue (raygen top-off): the tail slots
     [n - n_carried, n) keep the carried survivors, the front slots get
-    fresh camera rays."""
+    fresh camera rays (of the row strip ``local_height``, ``row_offset``
+    when given)."""
     n = cfg.num_rays
     gen = _raygen(cfg, camera, state.start_position,
                   _salted_frame(cfg, state.frame),
                   perm=state.pixel_perm if cfg.adaptive_sampling == "on"
                   else None, sample_base=state.sample_base,
-                  cam_prev=cam_prev)
+                  cam_prev=cam_prev, local_height=local_height,
+                  row_offset=row_offset)
     slot = torch.arange(n, dtype=torch.int64, device=state.accum.device)
     keep = slot >= (n - state.n_carried)
 
@@ -1918,48 +1948,60 @@ def merge_queue(cfg: RenderConfig, state: RenderState,
     return rays
 
 
-def check_step(cfg: RenderConfig, state: RenderState) -> None:
+def check_step(cfg: RenderConfig, state: RenderState,
+               local_height: int | None = None) -> None:
     """Raise ValueError, as the JAX step does, for a crop window outside
-    the frame or beside adaptive sampling, and for an adaptive step on a
-    state without its visit order (an old checkpoint: raygen would send
-    every fresh ray to pixel 0)."""
+    the frame, beside adaptive sampling or on a row strip, and for an
+    adaptive step on a state without its visit order (an old checkpoint:
+    raygen would send every fresh ray to pixel 0)."""
     adaptive = cfg.adaptive_sampling == "on"
+    local_height = cfg.height if local_height is None else local_height
     if cfg.crop is not None:
         cx0, cy0, cw, ch = (int(v) for v in cfg.crop)
         if adaptive:
             raise ValueError("cfg.crop is incompatible with "
                              "adaptive_sampling='on'")
+        if local_height != cfg.height:
+            raise ValueError("cfg.crop is incompatible with the sharded "
+                             "row-strip path")
         if not (0 <= cx0 and 0 <= cy0 and cw > 0 and ch > 0
                 and cx0 + cw <= cfg.width and cy0 + ch <= cfg.height):
             raise ValueError(f"crop {cfg.crop} outside the "
                              f"{cfg.width}x{cfg.height} frame")
-    if adaptive and state.pixel_perm.shape[0] != cfg.num_pixels:
+    p_local = cfg.width * local_height
+    if adaptive and state.pixel_perm.shape[0] != p_local:
         raise ValueError(
             f"adaptive_sampling='on' but state.pixel_perm has "
             f"{state.pixel_perm.shape[0]} entries (expected "
-            f"{cfg.num_pixels}); re-init with init_state(cfg) or load the "
+            f"{p_local}); re-init with init_state(cfg) or load the "
             "checkpoint with adaptive off")
 
 
 def render_step(state: RenderState, scene: SceneData, camera: CameraParams,
                 sun_dir, *, cfg: RenderConfig, tables: PacketTables,
                 sky_params: skymod.SkyParams | None = None,
-                cam_prev: CameraParams | None = None) -> RenderState:
+                cam_prev: CameraParams | None = None,
+                local_height: int | None = None,
+                row_offset: int = 0) -> RenderState:
     """One wavefront iteration.  Updates ``state.accum`` (and
     ``state.moment2`` when it is tracked) in place and returns the next
     state.  ``cam_prev``: the previous pose, which motion blur lerps
-    from.  Each stage runs inside a profiler range named after it (raygen,
-    extend, shade, connect, sort, accumulate), so a ``torch.profiler``
-    trace splits the step's device time by stage."""
-    check_step(cfg, state)
+    from.  ``local_height`` and ``row_offset``: the row strip the state
+    renders (:func:`init_state` with the same ``local_height``), which
+    moves its rays' image rows and enters every seed; None and 0 are the
+    whole frame.  Each stage runs inside a profiler range named after it
+    (raygen, extend, shade, connect, sort, accumulate), so a
+    ``torch.profiler`` trace splits the step's device time by stage."""
+    check_step(cfg, state, local_height)
     sky_params = sky_params or skymod.SkyParams(cfg.sky)
     n = cfg.num_rays
-    total = _scan_total(cfg)
+    total = _scan_total(cfg, local_height)
     frame_s = _salted_frame(cfg, state.frame)
 
     # 1. raygen top-off
     with record_function("raygen"):
-        rays = merge_queue(cfg, state, camera, cam_prev)
+        rays = merge_queue(cfg, state, camera, cam_prev, local_height,
+                           row_offset)
         scanned = state.start_position + (n - state.n_carried)
         start_next = scanned % total
         # Sobol: the round-robin passes completed
@@ -1978,7 +2020,8 @@ def render_step(state: RenderState, scene: SceneData, camera: CameraParams,
     with record_function("shade"):
         color, survive, next_rays, shadow = _shade(
             cfg, scene, sky_params, sun_dir, rays, t, ident, is_tri,
-            frame_s, tri_normal=tri_normal[0] if tri_normal else None)
+            frame_s, tri_normal=tri_normal[0] if tri_normal else None,
+            row_offset=row_offset)
 
     # 4. connect
     with record_function("connect"):
@@ -1994,7 +2037,7 @@ def render_step(state: RenderState, scene: SceneData, camera: CameraParams,
             # the firefly clamp on each bounce's contribution, per channel
             contrib = torch.clamp(contrib, max=cfg.radiance_clamp)
         pend = rays["pending"] + contrib
-        sent = sentinel(cfg.num_pixels)
+        sent = sentinel(state.accum.shape[0])
         key = compaction_sort_key(next_rays, survive, scene.bvh.node_packed,
                                   sent)
         # pixel (< 2^21) | bounces (<= 15) | lastSpecular in one column

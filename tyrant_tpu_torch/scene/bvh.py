@@ -265,3 +265,32 @@ def bvh_stats(bvh: BVHArrays) -> dict:
         "max_leaf_size": int(count.max()),
         "mean_leaf_size": float(count[count > 0].mean()),
     }
+
+
+def validate_bvh(bvh: BVHArrays, tri_lo: np.ndarray, tri_hi: np.ndarray,
+                 n_prims: int) -> None:
+    """Check a built tree's structure; raise AssertionError on the first
+    broken invariant: the leaf ranges tile the primitives, ``perm`` is a
+    bijection, every child box lies inside its parent's (the left child at
+    ``n + 1``, the right one in ``second_child``), and every leaf box bounds
+    its (reordered) primitives."""
+    count = bvh.prim_count
+    offset = bvh.prim_offset
+    is_leaf = count > 0
+    covered = np.zeros(n_prims, np.int32)
+    for n in np.nonzero(is_leaf)[0]:
+        covered[offset[n]:offset[n] + count[n]] += 1
+    assert (covered == 1).all(), "leaf ranges must tile the primitive array"
+    assert np.array_equal(np.sort(bvh.perm), np.arange(n_prims))
+    for n in np.nonzero(~is_leaf)[0]:
+        l, r = n + 1, bvh.second_child[n]
+        assert 0 < r < bvh.n_nodes
+        for c in (l, r):
+            assert (bvh.lo[c] >= bvh.lo[n] - 1e-5).all()
+            assert (bvh.hi[c] <= bvh.hi[n] + 1e-5).all()
+    plo = tri_lo[bvh.perm]
+    phi = tri_hi[bvh.perm]
+    for n in np.nonzero(is_leaf)[0]:
+        s, e = offset[n], offset[n] + count[n]
+        assert (plo[s:e] >= bvh.lo[n] - 1e-5).all()
+        assert (phi[s:e] <= bvh.hi[n] + 1e-5).all()

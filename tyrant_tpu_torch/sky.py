@@ -1,7 +1,10 @@
-"""Analytic Rayleigh + Mie sun/sky, the port of ``tyrant_tpu/sky.py`` for
-what the main path uses: the solar radiance for NEE (:func:`sun`), both
-miss radiances from one evaluation (:func:`sky_and_sunsky`) and the UI sun
-position mapping.  Directions are ``[..., 3]``; "up" is +Z."""
+"""Analytic Rayleigh + Mie sun/sky, the port of ``tyrant_tpu/sky.py``: the
+solar radiance for NEE (:func:`sun`), the sky alone (:func:`sky`), the sky
+with its smoothstep solar disc (:func:`sunsky`), both miss radiances from
+one evaluation (:func:`sky_and_sunsky`, what the render step calls) and
+the UI sun position mapping (:func:`from_spherical`,
+:func:`sun_direction_from_position`).  Directions are ``[..., 3]``; "up"
+is +Z."""
 
 from __future__ import annotations
 
@@ -45,7 +48,8 @@ def _total_mie(cfg: SkyConfig, device: torch.device) -> torch.Tensor:
     return mie * cfg.mie_coefficient
 
 
-def _from_spherical(p):
+def from_spherical(p):
+    """Spherical (azimuth, inclination) [..., 2] -> cartesian [..., 3]."""
     return torch.stack([torch.cos(p[..., 0]) * torch.sin(p[..., 1]),
                         torch.sin(p[..., 0]) * torch.sin(p[..., 1]),
                         torch.cos(p[..., 1])], dim=-1)
@@ -56,7 +60,7 @@ def sun_direction_from_position(sun_position, device) -> torch.Tensor:
     pos = torch.as_tensor(sun_position, dtype=torch.float32, device=device)
     half = torch.tensor([0.0, 0.5], dtype=torch.float32, device=device)
     scale = torch.tensor([6.28, 3.14], dtype=torch.float32, device=device)
-    return normalize(_from_spherical((pos - half) * scale))
+    return normalize(from_spherical((pos - half) * scale))
 
 
 def _rayleigh_phase(cos_angle):
@@ -118,14 +122,32 @@ def sun(view_dir, sun_dir, params: SkyParams):
     return 0.01 * (sun_e[..., None] * 19000.0 * fex) * sundisk[..., None]
 
 
+def sky(view_dir, sun_dir, params: SkyParams):
+    """Sky-only radiance (the diffuse-born miss)."""
+    _, _, sky_term, _ = _atmosphere_common(view_dir, sun_dir, params)
+    return params.cfg.sky_factor * 0.01 * sky_term
+
+
+def _sun_disc(sun_e, fex, cos_view_sun, params: SkyParams):
+    """The smoothstep solar disc term of :func:`sunsky`."""
+    a = params.sun_angular_diameter_cos
+    t = torch.clamp((cos_view_sun - a) / 0.00002, 0.0, 1.0)
+    sundisk = t * t * (3.0 - 2.0 * t)
+    return (sun_e[..., None] * 19000.0 * fex) * sundisk[..., None] * 1e-5
+
+
+def sunsky(view_dir, sun_dir, params: SkyParams):
+    """Sky plus the smoothstep solar disc (the specular-born miss)."""
+    sun_e, fex, sky_term, cos_view_sun = _atmosphere_common(view_dir, sun_dir,
+                                                            params)
+    return 0.01 * (_sun_disc(sun_e, fex, cos_view_sun, params) + sky_term)
+
+
 def sky_and_sunsky(view_dir, sun_dir, params: SkyParams):
     """Both miss radiances from one atmosphere evaluation: sky() for
     diffuse-born misses and sunsky() for specular-born ones."""
     sun_e, fex, sky_term, cos_view_sun = _atmosphere_common(view_dir, sun_dir,
                                                             params)
     sky_v = params.cfg.sky_factor * 0.01 * sky_term
-    a = params.sun_angular_diameter_cos
-    t = torch.clamp((cos_view_sun - a) / 0.00002, 0.0, 1.0)
-    sundisk = t * t * (3.0 - 2.0 * t)
-    sun_term = (sun_e[..., None] * 19000.0 * fex) * sundisk[..., None] * 1e-5
-    return sky_v, 0.01 * (sun_term + sky_term)
+    return sky_v, 0.01 * (_sun_disc(sun_e, fex, cos_view_sun, params)
+                          + sky_term)

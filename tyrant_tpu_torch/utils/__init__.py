@@ -1,2 +1,4 @@
-"""Image IO helpers of the port: PFM and OpenEXR readers and writers
-(copies of the JAX package's), used by ``scene.texture.load_texture``."""
+"""Helpers of the port: PFM and OpenEXR readers and writers (copies of
+the JAX package's, used by ``scene.texture.load_texture`` and the CLI's
+HDR export), render metrics (:mod:`.metrics`) and profiling
+(:mod:`.profiling`)."""
