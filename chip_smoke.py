@@ -79,6 +79,13 @@ sphere-free scene, the CLI on the loaded path's PLY: ``render`` (its PNG
 bit for bit the ``Renderer``'s image after the same steps, its ``--hdr``
 EXR the radiance), ``info``, ``bvh-debug`` at 1080p and ``bench``.
 
+The port's benchmark entry (``bench_torch.py``) times the pose harness
+(``bench_scene`` on the main cell at 1 s a pose, its Mrays/s within
+0.95-1.05x the captured main cell's); after the CLI, the examples
+``render_spheres_torch`` and ``render_instances_torch`` run at their
+defaults (the latter on a 65,536-triangle terrain PLY), each PNG
+decoded.
+
 Run from the root of the repository:
 
     python3 chip_smoke.py
@@ -94,6 +101,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import importlib.util
 import io
 import json
 import os
@@ -111,6 +119,8 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+import bench_torch  # noqa: E402
+
 from tyrant_tpu_torch import adaptive as adaptive_mod  # noqa: E402
 from tyrant_tpu_torch import checkpoint  # noqa: E402
 from tyrant_tpu_torch import cli  # noqa: E402
@@ -118,8 +128,6 @@ from tyrant_tpu_torch import native  # noqa: E402
 from tyrant_tpu_torch import render as tr  # noqa: E402
 from tyrant_tpu_torch import viewer  # noqa: E402
 from tyrant_tpu_torch.bench import equivalence, interactive  # noqa: E402
-from tyrant_tpu_torch.bench.harness import (results_to_dict,  # noqa: E402
-                                            run_benchmark)
 from tyrant_tpu_torch.bench.poses import camera_for_pose, mrays_per_s  # noqa: E402
 from tyrant_tpu_torch.config import (EPSILON, VERY_FAR,  # noqa: E402
                                      RenderConfig, interactive_config,
@@ -148,7 +156,8 @@ from tyrant_tpu_torch.utils.exr import read_exr  # noqa: E402
 DEV = torch.device("cuda")
 STAGES = ("raygen", "extend", "shade", "connect", "sort", "accumulate")
 TIE = 1e-3  # hit distances closer than EPSILON: either id is right
-TRACE_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
+ROOT = Path(__file__).resolve().parent
+TRACE_DIR = ROOT / "build" / "chip_smoke"
 SCENE_DIR = TRACE_DIR / "scene"  # the loaded scenes' files
 GENERATIONS = (("mono", False), ("wave", True))
 
@@ -584,29 +593,42 @@ def gate(sd) -> dict:
     return dict(result=res, seconds=seconds, launches=launches)
 
 
-def bench_path(sd, cfg: RenderConfig, seconds_per_pose: float = 1.0) -> dict:
-    """The pose harness on the main cell: all three poses, counted from 0."""
+def bench_path(sd, cfg: RenderConfig, main_mrays: float) -> dict:
+    """The pose harness through the port's benchmark entry
+    (``bench_torch.bench_scene``: bench.py's configuration, 4 warm-up
+    steps) on the main cell's scene at 1 s a pose, counted from 0: all
+    three poses, finite positive times, and a mean within 0.95-1.05x
+    ``main_mrays``, the captured main cell's mean over the same poses."""
     reset_launches()
-    results = run_benchmark(sd, cfg, seconds_per_pose=seconds_per_pose)
+    d, bcfg = bench_torch.bench_scene(sd, 1.0)
     torch.cuda.synchronize()
     launches = read_launches()
-    d = results_to_dict(results)
+    ratio = d["total_mrays_per_s"] / main_mrays
     for r in d["poses"]:
         log(f"harness pose {r['pose']}: {r['avg_ms']:.3f} ms/step over "
             f"{r['frames']} steps ({r['min_ms']:.3f}-{r['max_ms']:.3f}, "
             f"spread {r['spread_pct']}%, {r['retries']} retries), "
             f"{r['total_mrays_per_s']:.3f} Mrays/s")
     log(f"harness launches: {launches}")
-    log("harness: " + json.dumps(d))
-    if len(results) != 3 or not all(
-            np.isfinite(r.avg_ms) and r.avg_ms > 0 and r.total_mrays_per_s > 0
-            for r in results):
+    log(f"harness: mean {d['total_mrays_per_s']:.3f} Mrays/s, {ratio:.3f}x "
+        f"the captured main cell's {main_mrays:.3f}; " + json.dumps(d))
+    if dataclasses.replace(bcfg, use_packet_kernel=cfg.use_packet_kernel) \
+            != cfg:
+        raise AssertionError(f"bench_torch's configuration is not the main "
+                             f"cell's: {bcfg}")
+    if len(d["poses"]) != 3 or not all(
+            np.isfinite(r[k]) and r[k] > 0 for r in d["poses"]
+            for k in ("avg_ms", "min_ms", "max_ms", "total_mrays_per_s")):
         raise AssertionError(f"harness results: {d}")
+    if not 0.95 <= ratio <= 1.05:
+        raise AssertionError(f"bench_torch.bench_scene: {ratio:.3f}x the "
+                             "captured main cell")
     if not (launches["traverse"] and launches["accumulate"]) \
             or launches["stream"]:
         raise AssertionError(f"the harness did not run through the kernels: "
                              f"{launches}")
-    return dict(d, launches=launches)
+    return dict(d, launches=launches, main_mrays_per_s=main_mrays,
+                ratio=ratio)
 
 
 def live_entries(key, p: int) -> tuple[int, int]:
@@ -2699,6 +2721,49 @@ def strips_path(scene, tables, cfg: RenderConfig, reps: int = 8) -> dict:
                 card_vs_cpu=mad)
 
 
+def load_example(name: str):
+    """``examples/<name>.py`` as a module (the folder is not a package)."""
+    path = ROOT / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"example_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def bench_entry() -> dict:
+    """The examples ``render_spheres_torch`` and ``render_instances_torch``
+    at their defaults, the latter on a 65,536-triangle terrain PLY (eight
+    instances, 524,288 triangles), each PNG decoded and each counted from
+    0 (the Renderer's eager steps).  ``bench_torch.bench_scene`` runs in
+    the pose harness above."""
+    folder = TRACE_DIR / "examples"
+    folder.mkdir(parents=True, exist_ok=True)
+    mesh = SCENE_DIR / "terrain_65k.ply"
+    mesh.parent.mkdir(parents=True, exist_ok=True)
+    scene_files.write_ply(mesh, *benchmark_scene(65_536))
+    examples = {}
+    for name, kw in (("render_spheres_torch", {}),
+                     ("render_instances_torch", {"mesh": str(mesh)})):
+        mod = load_example(name)
+        png = folder / f"{name}.png"
+        reset_launches()
+        t0 = time.perf_counter()
+        img = mod.render(out=str(png), **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = read_launches()
+        pixels = png_pixels(png.read_bytes())
+        mean = float(pixels.mean())
+        log(f"{name} at its defaults ({img.shape[1]}x{img.shape[0]}): "
+            f"{secs:.1f} s, PNG mean {mean:.2f}, launches {launches}")
+        if pixels.shape != img.shape or not 0 < mean < 255:
+            raise AssertionError(f"{name}'s PNG: {pixels.shape}, mean {mean}")
+        if not (launches["traverse"] and launches["accumulate"]):
+            raise AssertionError(f"{name} missed a kernel: {launches}")
+        examples[name] = dict(seconds=secs, png_mean=mean, launches=launches)
+    return examples
+
+
 def light_table_mb(sd) -> float:
     """Device MB of the light tables."""
     return sum(getattr(sd, k).numel() * 4 for k in (
@@ -2776,7 +2841,8 @@ def main() -> int:
     mad = phase4()
     mad_dn = phase4(denoise_wave=True)
     mark("phase 4")
-    bench = bench_path(ren.scene, cfg)
+    bench = bench_path(ren.scene, cfg, float(np.mean(
+        [p["mrays_per_s"] for p in cap["poses"]])))
     mark("pose harness")
     prof = stage_profile_check(ren, poses[0]["device_split_ms"],
                                poses[0]["device_busy_ms_per_step"])
@@ -2792,6 +2858,8 @@ def main() -> int:
     mark("sphere-free")
     fe_cli = cli_path()
     mark("front ends: cli")
+    be = bench_entry()
+    mark("bench entry")
     lt = lights_path(scene_host, cfg)
     mark("lights")
     fg = fog_path(scene_host, cfg)
@@ -2901,6 +2969,8 @@ def main() -> int:
         split by strip."""
         return {"cli_launches": fe_cli["render_launches"][key]
                 + fe_cli["bench_launches"][key],
+                "bench_entry_launches": sum(e["launches"][key]
+                                            for e in be.values()),
                 "viewer_launches": view["launches"][key],
                 "strips_launches": strips["one_strip_launches"][key]
                 + strips["two_launches"][key]
@@ -3019,6 +3089,7 @@ def main() -> int:
                     "preset_normals": nrm, "flythrough": fly,
                     "registers": regs, "stage_profile": prof,
                     "viewer": view, "cli": fe_cli, "strips": strips,
+                    "bench_entry": be,
                     "seconds_by_path": secs}))
     log(gpu)
     log(json.dumps(result))

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+import bench_torch
 import chip_smoke
 from tyrant_tpu_torch import render as tr
 from tyrant_tpu_torch.config import small_config
@@ -254,9 +255,8 @@ def test_stream_gate_and_harness_at_small_size(cuda):
     assert kstream.launches > before
     eq = chip_smoke.gate(sd)
     assert eq["result"] == "ok" and eq["launches"]["stream"] == tables.max_depth
-    bench = chip_smoke.bench_path(
-        sd, small_config(width=96, height=64, num_rays=8192),
-        seconds_per_pose=0.2)
+    bench, _ = bench_torch.bench_scene(
+        sd, 0.2, cfg=small_config(width=96, height=64, num_rays=8192))
     assert [p["pose"] for p in bench["poses"]] == [0, 1, 2]
 
 
@@ -716,3 +716,43 @@ def test_cli_render_on_the_card(cuda, tmp_path):
     cli.main(["bvh-debug", *argv, "--out", str(tmp_path / "h.png")])
     assert chip_smoke.png_pixels((tmp_path / "h.png").read_bytes()).shape \
         == (48, 64, 3)
+
+
+def test_bench_scene_small_on_the_card(cuda, monkeypatch):
+    """``bench_torch.bench_scene`` on the card at 64x48 and 4,096 rays:
+    three poses with finite positive times, through the kernels; and the
+    gate of ``--equivalence-only`` on a small scene."""
+    sc = Scene.from_triangles(*terrain(n_quads=32, towers=3),
+                              builder="numpy")
+    chip_smoke.reset_launches()
+    d, cfg = bench_torch.bench_scene(sc, 0.2, cfg=small_config(
+        width=64, height=48, num_rays=4096))
+    torch.cuda.synchronize()
+    launches = chip_smoke.read_launches()
+    assert cfg.num_rays == 4096 and [r["pose"] for r in d["poses"]] == \
+        [0, 1, 2]
+    assert all(np.isfinite(r["avg_ms"]) and r["avg_ms"] > 0
+               and r["total_mrays_per_s"] > 0 for r in d["poses"])
+    assert launches["traverse"] >= 2 and launches["accumulate"] >= 1
+    monkeypatch.setattr(bench_torch, "DRAGON_TRIS", 8192)
+    monkeypatch.setattr(bench_torch, "GATE_RAYS", 4096)
+    assert bench_torch.equivalence_only() == "ok"
+
+
+def test_instances_example_on_the_card(cuda, tmp_path):
+    """``examples/render_instances_torch.py`` on the card at 64x48: its
+    PNG decodes to the image it returns, and to the CPU's within a mean
+    0.03 after the same steps."""
+    from tyrant_tpu_torch.scene import files
+    mesh = tmp_path / "terrain.ply"
+    files.write_ply(mesh, *terrain(n_quads=24, towers=2))
+    mod = chip_smoke.load_example("render_instances_torch")
+    imgs = {}
+    for dev in ("cuda", "cpu"):
+        out = tmp_path / f"{dev}.png"
+        imgs[dev] = mod.render(str(mesh), n=3, steps=4, width=64, height=48,
+                               rays=4096, out=str(out), device=dev)
+        assert np.array_equal(chip_smoke.png_pixels(out.read_bytes()),
+                              imgs[dev])
+    diff = np.abs(imgs["cuda"].astype(float) - imgs["cpu"]) / 255
+    assert diff.mean() < 0.03

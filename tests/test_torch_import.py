@@ -31,7 +31,8 @@ def test_module_list_covers_the_package():
 
 def test_import_leaves_jax_out():
     code = ("import sys\n"
-            + "".join(f"import {m}\n" for m in _port_modules() + ["chip_smoke"])
+            + "".join(f"import {m}\n" for m in _port_modules()
+                      + ["chip_smoke", "bench_torch"])
             + "bad = sorted(m for m in sys.modules if m in ('jax', 'triton', "
               "'tyrant_tpu') or m.startswith(('jax.', 'tyrant_tpu.')))\n"
               "assert not bad, bad\n"
@@ -54,7 +55,8 @@ def _imported_roots(path: Path) -> list[str]:
 
 def test_no_source_imports_jax_or_the_jax_package():
     paths = sorted((_ROOT / "tyrant_tpu_torch").rglob("*.py"))
-    paths.append(_ROOT / "chip_smoke.py")
+    paths += [_ROOT / "chip_smoke.py", _ROOT / "bench_torch.py",
+              *sorted((_ROOT / "examples").glob("*_torch.py"))]
     bad = {str(p.relative_to(_ROOT)): m for p in paths
            for m in _imported_roots(p) if m in ("jax", "tyrant_tpu")}
     assert not bad, bad

@@ -49,6 +49,15 @@ def _compile(out: Path) -> None:
             os.unlink(tmp)
 
 
+def build_library() -> str:
+    """Compile the native library with g++ (again, if it exists) and
+    return its path, the one :func:`get_lib` loads.  Raises OSError or
+    CalledProcessError when g++ is missing or fails."""
+    path = library_path()
+    _compile(path)
+    return str(path)
+
+
 def get_lib() -> ctypes.CDLL:
     """The native library, compiled on first use.  Raises OSError or
     CalledProcessError when g++ is missing or fails."""

@@ -1,11 +1,28 @@
 """Intersection primitives, the port of ``tyrant_tpu/ops/intersect.py``:
-Möller-Trumbore with back-face culling and the analytic sphere."""
+the slab test, Möller-Trumbore with back-face culling, the analytic sphere
+and the brute-force closest hit over every triangle (the no-BVH oracle
+that the tests hold the traversal against)."""
 
 from __future__ import annotations
 
 import torch
 
 from ..config import EPSILON, VERY_FAR
+
+BRUTE_CHUNK_PAIRS = 1 << 20  # ray-triangle pairs a chunk of the oracle
+
+
+def ray_aabb(origin, inv_dir, dir_is_neg, lo, hi, t_max):
+    """Slab test.  origin/inv_dir [..., 3]; dir_is_neg [..., 3] bool;
+    lo/hi [..., 3] (one box a ray); t_max [...] the current closest hit,
+    for early rejection.  Returns bool [...]."""
+    near = torch.where(dir_is_neg, hi, lo)
+    far = torch.where(dir_is_neg, lo, hi)
+    t0 = (near - origin) * inv_dir
+    t1 = (far - origin) * inv_dir
+    t_min_v = t0.amax(dim=-1)
+    t_max_v = t1.amin(dim=-1)
+    return (t_min_v <= t_max_v) & (t_min_v < t_max) & (t_max_v > 0)
 
 
 def moller_trumbore(origin, direction, vert, e1, e2):
@@ -60,3 +77,31 @@ def intersect_spheres(origin, direction, centers, radii):
     t, idx = torch.min(t_all, dim=1)
     idx = torch.where(t < VERY_FAR, idx, torch.full_like(idx, -1))
     return t, idx.to(torch.int32)
+
+
+def intersect_triangles_brute(origin, direction, vert, e1, e2, t_max=None):
+    """Closest hit over every triangle, with no BVH: the oracle of the
+    traversal tests; no render path calls it.  origin/direction [N, 3];
+    vert/e1/e2 [T, 3]; t_max optional [N].  Returns (t [N], tri_idx [N]
+    i32), VERY_FAR / -1 on a miss.  Accepts t > EPSILON, and of equal
+    distances the lowest index, as the leaf test does.  Rays go in chunks
+    of at most ``BRUTE_CHUNK_PAIRS`` ray-triangle pairs, so memory stays
+    at a few [chunk, T] tensors."""
+    n, n_tri = origin.shape[0], vert.shape[0]
+    t = torch.full((n,), VERY_FAR, dtype=torch.float32, device=origin.device)
+    idx = torch.full((n,), -1, dtype=torch.int32, device=origin.device)
+    if n_tri == 0:
+        return t, idx
+    step = max(1, BRUTE_CHUNK_PAIRS // n_tri)
+    for s in range(0, n, step):
+        t_all = moller_trumbore(origin[s:s + step, None, :],
+                                direction[s:s + step, None, :],
+                                vert[None], e1[None], e2[None])  # [n, T]
+        t_all = torch.where(t_all > EPSILON, t_all,
+                            torch.full_like(t_all, VERY_FAR))
+        i = torch.argmin(t_all, dim=1)
+        t[s:s + step] = torch.gather(t_all, 1, i[:, None])[:, 0]
+        idx[s:s + step] = i.to(torch.int32)
+    miss = t >= (VERY_FAR if t_max is None else t_max)
+    return (torch.where(miss, torch.full_like(t, VERY_FAR), t),
+            torch.where(miss, torch.full_like(idx, -1), idx))

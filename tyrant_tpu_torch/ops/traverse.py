@@ -46,6 +46,20 @@ class BVHDevice:
     def n_nodes(self) -> int:
         return self.node_packed.shape[0]
 
+    # the triangles' columns of ``tri_packed`` (leaf order, padding rows
+    # included, as the JAX properties return them)
+    @property
+    def tri_vert(self) -> torch.Tensor:
+        return self.tri_packed[:, 0:3]
+
+    @property
+    def tri_e1(self) -> torch.Tensor:
+        return self.tri_packed[:, 3:6]
+
+    @property
+    def tri_e2(self) -> torch.Tensor:
+        return self.tri_packed[:, 6:9]
+
     @classmethod
     def from_host(cls, bvh, tri_vert, tri_e1, tri_e2, device) -> "BVHDevice":
         """bvh: scene.bvh.BVHArrays; tri_*: [T,3] in ORIGINAL
