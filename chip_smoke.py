@@ -753,6 +753,89 @@ def accum_at_step(ren, reps: int = 20) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def tracer_on(on: bool = True):
+    """The program's tracer (``utils.profiling``) on while ``on``, for
+    :func:`check_counters`.  Its markers and counters launch outside the
+    stage ranges that :func:`stage_split` reads."""
+    if on:
+        profiling.enable()
+    try:
+        yield
+    finally:
+        if on:
+            profiling.disable()
+
+
+def check_counters(snap: dict, n: int, carried0: int, shadow0: int,
+                   seen: list) -> None:
+    """The tracer's per-step counters in ``snap`` (``profiling.snapshot()``
+    of a run of render steps on one device since ``enable``) against the
+    states the steps returned: ``seen`` holds each step's (n_carried,
+    shadow_rays) after it, ``carried0`` and ``shadow0`` those before the
+    first.  Each step's ``shadow_valid`` must be its ``shadow_rays`` delta,
+    ``shadow_slots`` the queue's ``n``, ``survivors`` its ``n_carried``,
+    ``flushed`` and ``fresh_rays`` what the queue dropped and topped up;
+    the running totals the rows' sums."""
+    steps = snap["steps"]
+    if len(steps) != len(seen):
+        raise AssertionError(f"the tracer holds {len(steps)} steps, "
+                             f"{len(seen)} ran")
+    carried, shadow = carried0, shadow0
+    for rec, (c, sh) in zip(steps, seen):
+        got = rec["counts"]
+        want = dict(fresh_rays=n - carried, survivors=c, flushed=n - c,
+                    shadow_slots=n, shadow_valid=sh - shadow)
+        bad = {k: (got[k], v) for k, v in want.items() if got[k] != v}
+        if bad:
+            raise AssertionError(f"tracer step {rec['step']}: counters "
+                                 f"(counted, from the state) {bad}")
+        carried, shadow = c, sh
+    (totals,) = snap["counters"].values()
+    sums = {k: sum(r["counts"][k] for r in steps) for k in totals}
+    if totals != sums:
+        raise AssertionError(f"tracer totals {totals} are not the sums of "
+                             f"its rows {sums}")
+
+
+def trace_ring_check(steps: int = 40, slots: int = 16) -> None:
+    """The tracer's kernels (``csrc/common.cu``: ``trace_marker<K>``,
+    ``trace_count``) against their plain versions (the CPU branches of
+    ``utils.profiling``) on the same values: ``steps`` steps into rings
+    of ``slots`` rows, a step a raygen marker, the end marker (which
+    advances the step), a row of counter values (random int64 up to 2^40)
+    and the image marker into the row just ended.  The counter rows, the
+    totals and the step counters must be equal, the markers fill the same
+    cells, and each row's device clocks must not fall."""
+    g = torch.Generator().manual_seed(17)
+    rings = [profiling._Ring(torch.device(d), slots) for d in ("cpu", DEV)]
+    for _ in range(steps):
+        v = torch.randint(0, 1 << 40, (len(profiling.COUNTERS),),
+                          generator=g, dtype=torch.int64)
+        for r in rings:
+            profiling._launch_marker(r.marks, r.step, 0)
+            profiling._launch_marker(r.marks, r.step, profiling.END,
+                                     advance=True)
+            profiling._launch_count(r, v.to(r.device))
+            profiling._launch_marker(r.marks, r.step, profiling.IMAGE,
+                                     back=1)
+    torch.cuda.synchronize()
+    cpu, dev = rings
+    for what in ("counts", "total", "step"):
+        if not torch.equal(getattr(cpu, what), getattr(dev, what).cpu()):
+            raise AssertionError(f"trace_count: the device ring's {what} "
+                                 "is not the plain version's")
+    marks = dev.marks.cpu()
+    if not torch.equal(cpu.marks != 0, marks != 0):
+        raise AssertionError("trace_marker filled other cells than the "
+                             "plain version")
+    cols = [0, profiling.END, profiling.IMAGE]
+    if not bool((marks[:, cols].diff(dim=1) >= 0).all()):
+        raise AssertionError("trace_marker: a row's device clock fell")
+    log(f"tracer kernels: {steps} steps on a {slots}-step ring, counters, "
+        "totals, step and marker cells equal to the plain version")
+
+
 def stage_split(trace_path: Path, steps: int) -> tuple[dict, float, dict]:
     """Device ms per step of each stage of render_step, from a profiler
     trace: every kernel, copy and memset is charged to the stage whose
@@ -844,8 +927,10 @@ def phase3(ren, poses_run=(0, 1, 2), label: str = "",
     warm-up steps, 8 steps timed with CUDA events, then 2 steps under the
     profiler for the device's busy time and idle share, and for an eager
     renderer the per-stage device-time split (a graph replay has no
-    stages).  ``camera(i)``: pose i's camera.  Under ``track_variance`` or
-    adaptive sampling the accumulation is the moment2 mode's launch."""
+    stages) and the tracer's counters of those 2 steps against the
+    states they returned (:func:`check_counters`).  ``camera(i)``: pose
+    i's camera.  Under ``track_variance`` or adaptive sampling the
+    accumulation is the moment2 mode's launch."""
     cfg = ren.cfg
     wave = tr._pick_wave(cfg, "extend")
     tag = label + ("wave" if wave else "mono") \
@@ -859,10 +944,12 @@ def phase3(ren, poses_run=(0, 1, 2), label: str = "",
         cam = camera(i)
         ended = torch.zeros((), dtype=torch.int64, device=DEV)
 
-        def run(steps, cam=cam, ended=ended):
+        def run(steps, cam=cam, ended=ended, seen=None):
             for _ in range(steps):
                 st = ren.step(cam, 1)
                 ended.add_(cfg.num_rays - st.n_carried)
+                if seen is not None:  # an eager step's own tensors
+                    seen.append((st.n_carried, st.shadow_rays))
 
         run(4)  # warm-up
         torch.cuda.synchronize()
@@ -876,14 +963,21 @@ def phase3(ren, poses_run=(0, 1, 2), label: str = "",
         wall_ms = (time.perf_counter() - t0) * 1e3 / 8
         ms = a.elapsed_time(b) / 8
         shadow_n = int(ren.state.shadow_rays) - shadow0
+        carried1 = int(ren.state.n_carried)
 
         trace = TRACE_DIR / f"trace_{tag}_pose{i}.json"
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        seen = None if ren.captured else []
+        with tracer_on(not ren.captured), \
+                profile(activities=[ProfilerActivity.CPU,
+                                    ProfilerActivity.CUDA]) as prof:
             a.record()
-            run(2)
+            run(2, seen=seen)
             b.record()
             torch.cuda.synchronize()
+        if seen is not None:
+            check_counters(profiling.snapshot(), cfg.num_rays, carried1,
+                           shadow0 + shadow_n,
+                           [(int(c), int(sh)) for c, sh in seen])
         prof.export_chrome_trace(str(trace))
         window_ms = a.elapsed_time(b) / 2
         busy_ms, n_ops = device_busy(trace, 2)
@@ -2811,6 +2905,7 @@ def main() -> int:
     p1 = phase1(ren.scene, ren.tables)
     eq = gate(ren.scene)
     acc = phase2(cfg.num_pixels, cfg.num_rays)
+    trace_ring_check()
     mark("phases 1, gate, 2")
     poses, launches = phase3(ren)
     # the wave generation at one pose: its kernel's checks come below

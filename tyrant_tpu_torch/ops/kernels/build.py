@@ -168,6 +168,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.tyrant_stream.argtypes = [p, i, p, p, p, p, p, p, i, p, p, p, i, p,
                                   i, p, p, p]
     lib.tyrant_stream.restype = i
+    lib.tyrant_trace_marker.argtypes = [i, p, p, i, i, i, i, p]
+    lib.tyrant_trace_marker.restype = i
+    lib.tyrant_trace_count.argtypes = [p, p, p, p, i, i, p]
+    lib.tyrant_trace_count.restype = i
     lib.tyrant_error_string.argtypes = [i]
     lib.tyrant_error_string.restype = ctypes.c_char_p
 

@@ -61,7 +61,6 @@ import math
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from . import adaptive as adaptive_mod
 from . import sky as skymod
@@ -88,6 +87,7 @@ from .ops.tonemap import bloom, to_uint8, tonemap_image
 from .scene.envlight import LUM_RGB
 from .scene.scene import (DIFF, GGX, LIGHT, PHONG, REFR, RREFR, SPEC, Scene,
                           SceneData)
+from .utils import profiling as _prof
 
 PHONG_EXPONENT = 40.0
 _KEY_GRID = 8  # survivor-ordering spatial grid resolution
@@ -1753,6 +1753,9 @@ def _shade(cfg: RenderConfig, scene: SceneData, sky_params: skymod.SkyParams,
     else:
         seed, rr = rng.random_float(seed)
     survive = hit & (rays["bounces"] < cfg.max_bounces) & (p > eps) & (rr <= p)
+    if _prof.ON:
+        _prof.defer("roulette_kills", lambda: (
+            hit & (rays["bounces"] < cfg.max_bounces) & ~survive).sum())
     direct_out = torch.where(_col(survive),
                              direct / _col(torch.clamp(p, min=1e-20)), direct)
 
@@ -1816,6 +1819,8 @@ def _connect(scene: SceneData, shadow, tables: PacketTables,
                        scene.sphere_center[None], scene.sphere_radius[None])
     sph_occ = ((t_all > 0.0) & ((t_all + EPSILON) < maxd[:, None])).any(1)
     occluded = occluded | sph_occ
+    if _prof.ON:
+        _prof.defer("unoccluded", lambda: (valid & ~occluded).sum())
     return torch.where(_col(valid & ~occluded), shadow["color"],
                        torch.zeros_like(shadow["color"]))
 
@@ -1989,17 +1994,23 @@ def render_step(state: RenderState, scene: SceneData, camera: CameraParams,
     from.  ``local_height`` and ``row_offset``: the row strip the state
     renders (:func:`init_state` with the same ``local_height``), which
     moves its rays' image rows and enters every seed; None and 0 are the
-    whole frame.  Each stage runs inside a profiler range named after it
-    (raygen, extend, shade, connect, sort, accumulate), so a
-    ``torch.profiler`` trace splits the step's device time by stage."""
+    whole frame.  With the tracer on (:mod:`~tyrant_tpu_torch.utils.profiling`)
+    a device marker opens each stage (raygen, extend, shade, connect,
+    sort, accumulate) and one ends the step.  Under a ``torch.profiler``
+    session, with the tracer on or off, each stage is a range of its
+    name, so a trace splits the step's device time by stage.  The markers, and the step's counters
+    after them, are kernels of their own, so a CUDA graph captured with
+    the tracer on records them on every replay.  With it off the step
+    launches neither."""
     check_step(cfg, state, local_height)
     sky_params = sky_params or skymod.SkyParams(cfg.sky)
     n = cfg.num_rays
     total = _scan_total(cfg, local_height)
     frame_s = _salted_frame(cfg, state.frame)
+    dev = state.accum.device
 
     # 1. raygen top-off
-    with record_function("raygen"):
+    with _prof.stage(dev, 0):
         rays = merge_queue(cfg, state, camera, cam_prev, local_height,
                            row_offset)
         scanned = state.start_position + (n - state.n_carried)
@@ -2011,27 +2022,27 @@ def render_step(state: RenderState, scene: SceneData, camera: CameraParams,
     # 2. extend (with the hit normals under use_kernel_normals, on a scene
     # whose triangles all have the default material)
     kernel_normals = cfg.use_kernel_normals == "on" and scene.tri_default_mat
-    with record_function("extend"):
+    with _prof.stage(dev, 1):
         t, ident, is_tri, *tri_normal = _intersect_scene(
             rays["origin"], rays["direction"], scene, tables,
             wave=_pick_wave(cfg, "extend"), normals=kernel_normals)
 
     # 3. shade
-    with record_function("shade"):
+    with _prof.stage(dev, 2):
         color, survive, next_rays, shadow = _shade(
             cfg, scene, sky_params, sun_dir, rays, t, ident, is_tri,
             frame_s, tri_normal=tri_normal[0] if tri_normal else None,
             row_offset=row_offset)
 
     # 4. connect
-    with record_function("connect"):
+    with _prof.stage(dev, 3):
         shadow_contrib = _connect(scene, shadow, tables,
                                   wave=_pick_wave(cfg, "connect"))
 
     # 5. one stable sort: compaction of survivors AND pixel order of the
     # terminated rays (shade's RNG is keyed by queue slot, so the order
     # must equal the JAX package's stable multi-operand sort)
-    with record_function("sort"):
+    with _prof.stage(dev, 4):
         contrib = color + shadow_contrib
         if cfg.radiance_clamp > 0.0:
             # the firefly clamp on each bounce's contribution, per channel
@@ -2058,19 +2069,28 @@ def render_step(state: RenderState, scene: SceneData, camera: CameraParams,
     # 6. flush the terminated rays' pending radiance (+1 path count),
     # straight from the sort: the keys below the sentinel; with the second
     # moments, their squares in the same launch
-    with record_function("accumulate"):
+    with _prof.stage(dev, 5):
         if _moments(cfg):
             accum = accumulate_terminated(state.accum, key_s, pend_s,
                                           moment2=state.moment2)
         else:
             accum = accumulate_terminated(state.accum, key_s, pend_s)
+    if _prof.ON:
+        _prof.mark(dev, _prof.END)
+    shadow_valid = shadow["valid"].sum()
+    if _prof.ON:
+        hits, tri_hits = (t < VERY_FAR).sum(), is_tri.sum()
+        _prof.count(dev, fresh_rays=n - state.n_carried, tri_hits=tri_hits,
+                    sphere_hits=hits - tri_hits, survivors=n_carried,
+                    shadow_slots=n, shadow_valid=shadow_valid,
+                    flushed=n - n_carried)
 
     return RenderState(
         accum=accum, origin=origin_s, direction=direction_s, direct=direct_s,
         pending=pend_s, pixel=packed_s >> 5, bounces=(packed_s >> 1) & 15,
         last_specular=(packed_s & 1).to(torch.bool), n_carried=n_carried,
         start_position=start_next, frame=(state.frame + 1) & 0xFFFFFFFF,
-        shadow_rays=state.shadow_rays + shadow["valid"].sum(),
+        shadow_rays=state.shadow_rays + shadow_valid,
         bsdf_pdf=bsdf_pdf_s, moment2=state.moment2,
         pixel_perm=state.pixel_perm, sample_base=sample_base_next,
         sample_idx=sample_idx_s)
@@ -2084,15 +2104,18 @@ def _camera_views(buf: torch.Tensor) -> CameraParams:
 
 
 class _Graph:
-    """One captured CUDA graph, its static outputs and the kernel launches
-    that each replay makes (the wrappers' counters, ``ops.kernels``)."""
+    """One captured CUDA graph, its static outputs, the kernel launches
+    that each replay makes (the wrappers' counters, ``ops.kernels``) and
+    the render steps it holds with the tracer's markers (``traced``: 0
+    when captured with the tracer off)."""
 
-    def __init__(self, fn, device, what: str):
+    def __init__(self, fn, device, what: str, steps: int = 0):
         """Capture ``fn()``, which must read and write only tensors that
-        outlive the graph.  The capture runs on its own side stream; the
-        wrappers called in it launch nothing, so their counters are set
-        back.  Raises when the capture fails: nothing falls back to eager
-        launches."""
+        outlive the graph and runs ``steps`` render steps.  The capture
+        runs on its own side stream; the wrappers called in it launch
+        nothing, so their counters are set back.  Raises when the capture
+        fails: nothing falls back to eager launches."""
+        self.traced = steps if _prof.ON else 0
         before = kernels.launch_counts()
         self.graph = torch.cuda.CUDAGraph()
         try:
@@ -2141,6 +2164,15 @@ class Renderer:
     launch counters: ``replayed_steps`` counts the steps replayed and
     ``replayed_launches`` the kernel launches the replays made, by
     counter name (``ops.kernels.launch_counts``).
+
+    With the tracer on (:mod:`~tyrant_tpu_torch.utils.profiling`, enabled
+    before the first step), :meth:`step` records the host spans
+    ``render.step`` with ``render.step.reset``, ``render.step.camera``,
+    ``render.step.replay`` (the graph launch alone), ``render.step.eager``
+    and, when the visit order is rebuilt, ``render.step.adapt``;
+    :meth:`image` records ``render.image`` with ``render.image.replay`` or
+    ``render.image.resolve``, and its resolve a device marker at each end.
+    The graphs captured then hold the step's stage markers and counters.
 
     Under ``cfg.motion_blur`` the step lerps each fresh ray's pose from
     the previous distinct pose (captured: a second static camera buffer,
@@ -2221,11 +2253,16 @@ class Renderer:
         step is captured, that state's tensors are the graph's static
         buffers, which the next step or reset overwrites: copy what must
         outlive it."""
+        with _prof.span("render.step") if _prof.ON else _prof.OFF:
+            return self._step(camera, n_steps)
+
+    def _step(self, camera: Camera, n_steps: int) -> RenderState:
         steps = n_steps
         pose = camera.pose_key()
         moved = self._last_pose is not None and pose != self._last_pose
         if moved:
-            self._reset()
+            with _prof.span("render.step.reset") if _prof.ON else _prof.OFF:
+                self._reset()
         self._last_pose = pose
         if not self.captured:
             cam = camera.to_device(self.cfg, self.device)
@@ -2235,16 +2272,18 @@ class Renderer:
             self._last_cam = cam
             if self._prev_cam is None:
                 self._prev_cam = cam  # the first frame: no motion yet
-            for _ in range(n_steps):
-                self.state = self._render_step(self.state, cam,
-                                               self._prev_cam)
+            with _prof.span("render.step.eager") if _prof.ON else _prof.OFF:
+                for _ in range(n_steps):
+                    self.state = self._render_step(self.state, cam,
+                                                   self._prev_cam)
             self._adapt(n_steps)
             return self.state
         first = self._cam_vec is None
         if self._blur and moved:
             # in stream order, before the new pose's copy lands
             self._cam_prev_buf.copy_(self._cam_buf)
-        self._set_camera(camera)
+        with _prof.span("render.step.camera") if _prof.ON else _prof.OFF:
+            self._set_camera(camera)
         if self._blur and first:
             self._cam_prev_buf.copy_(self._cam_buf)
         self._last_cam = self._cam
@@ -2252,12 +2291,13 @@ class Renderer:
             # one graph of one step: a replay costs microseconds, and on an
             # H100 a graph of four steps (the JAX package's _CHAIN_LEN) ran
             # no faster (chip_smoke.captured_step measures both)
-            _warm_up(self._static_step, self.device)  # a real step
+            with _prof.span("render.step.eager") if _prof.ON else _prof.OFF:
+                _warm_up(self._static_step, self.device)  # a real step
             self._graphs["step"] = _Graph(self._static_step, self.device,
-                                          "the render step")
+                                          "the render step", steps=1)
             n_steps -= 1
         for _ in range(n_steps):
-            self._replay(self._graphs["step"])
+            self._replay(self._graphs["step"], "render.step.replay")
             self.replayed_steps += 1
         self._adapt(steps)  # the warm-up step counts
         return self.state
@@ -2271,15 +2311,17 @@ class Renderer:
         phase = self._sched.tick(n_steps)
         if phase is None:
             return
-        ph = torch.tensor(phase, dtype=torch.float32)
-        if self.device.type == "cuda":
-            ph = ph.pin_memory().to(self.device, non_blocking=True)
-        perm = adaptive_mod.build_perm(self.state.accum, self.state.moment2,
-                                       ph, gamma=self.cfg.adaptive_gamma)
-        if self.captured:
-            self.state.pixel_perm.copy_(perm)
-        else:
-            self.state = dataclasses.replace(self.state, pixel_perm=perm)
+        with _prof.span("render.step.adapt") if _prof.ON else _prof.OFF:
+            ph = torch.tensor(phase, dtype=torch.float32)
+            if self.device.type == "cuda":
+                ph = ph.pin_memory().to(self.device, non_blocking=True)
+            perm = adaptive_mod.build_perm(self.state.accum,
+                                           self.state.moment2, ph,
+                                           gamma=self.cfg.adaptive_gamma)
+            if self.captured:
+                self.state.pixel_perm.copy_(perm)
+            else:
+                self.state = dataclasses.replace(self.state, pixel_perm=perm)
 
     def noise_estimate(self) -> float:
         """The image's convergence: the mean relative standard error of
@@ -2321,8 +2363,13 @@ class Renderer:
             if dst is not src:
                 dst.copy_(src)
 
-    def _replay(self, g: _Graph):
-        g.graph.replay()
+    def _replay(self, g: _Graph, span: str | None = None):
+        """Replay ``g``; with the tracer on, the host span ``span``, if
+        given, around the launch alone."""
+        with _prof.span(span) if _prof.ON and span else _prof.OFF:
+            g.graph.replay()
+        if g.traced and _prof.ON:
+            _prof.replayed(self.device, g.traced)
         for k, v in g.launches.items():
             self.replayed_launches[k] = self.replayed_launches.get(k, 0) + v
 
@@ -2350,18 +2397,24 @@ class Renderer:
         buffer is untouched.  When the renderer is captured, this is a
         replay and the image the graph's static output, which the next
         call overwrites."""
-        use_dn = (self.cfg.denoise == "on") if denoise is None else denoise
-        use_dn = use_dn and self._last_cam is not None
-        aovs = self._pose_aovs() if use_dn else None
-        if not self.captured:
-            return self._resolve(aovs, uint8)
-        g = self._captured(("image", use_dn, uint8),
-                           lambda: self._resolve(aovs, uint8), "image()")
-        self._replay(g)
-        return g.out
+        with _prof.span("render.image") if _prof.ON else _prof.OFF:
+            use_dn = (self.cfg.denoise == "on") if denoise is None \
+                else denoise
+            use_dn = use_dn and self._last_cam is not None
+            aovs = self._pose_aovs() if use_dn else None
+            if not self.captured:
+                with _prof.span("render.image.resolve") if _prof.ON \
+                        else _prof.OFF:
+                    return self._resolve(aovs, uint8)
+            g = self._captured(("image", use_dn, uint8),
+                               lambda: self._resolve(aovs, uint8), "image()")
+            self._replay(g, "render.image.replay")
+            return g.out
 
     def _resolve(self, aovs, uint8: bool) -> torch.Tensor:
         cfg = self.cfg
+        if _prof.ON:
+            _prof.mark(self.device, _prof.IMAGE)
         mean = self.radiance()
         if aovs is not None:
             mean = atrous_denoise(mean, aovs["albedo"], aovs["normal"],
@@ -2371,7 +2424,10 @@ class Renderer:
             mean = bloom(mean, cfg.bloom_strength, cfg.bloom_threshold,
                          cfg.bloom_radius)
         img = tonemap_image(mean, cfg.tonemap, cfg.exposure)
-        return to_uint8(img) if uint8 else img
+        img = to_uint8(img) if uint8 else img
+        if _prof.ON:
+            _prof.mark(self.device, _prof.IMAGE_END)
+        return img
 
     def aovs(self) -> dict:
         """The AOV pass (:func:`render_aovs`) for the last stepped pose
