@@ -15,7 +15,11 @@ benchmark's three poses with a profiled per-stage device-time split, once
 with each traversal-kernel generation (``packet_kernel_mode`` "mono" and
 "wave"), drives the denoised display path (AOV pass, à-trous denoiser,
 bloom) at full size, compares small renders on the card with the same
-renders on the CPU, and times the three poses with the pose harness.
+renders on the CPU, and times the three poses with the pose harness.  The shade kernel is
+held against its plain version (``render._shade_plain``) on the queue of
+the main cell's next step after three carried steps (the tri_shade
+variant, 2,097,152 slots) and on the interactive preset's (the kernel
+normals variant, 131,072 slots), and timed against both and a bound.
 
 It then captures the main cell's step as a CUDA graph
 (``fuse_step_chains="auto"``): bit for bit the eager step after six
@@ -138,6 +142,7 @@ from tyrant_tpu_torch.ops import traverse as plain_trav  # noqa: E402
 from tyrant_tpu_torch.ops import kernels  # noqa: E402
 from tyrant_tpu_torch.ops.kernels import accum as kacc  # noqa: E402
 from tyrant_tpu_torch.ops.kernels import build  # noqa: E402
+from tyrant_tpu_torch.ops.kernels import shade as kshade  # noqa: E402
 from tyrant_tpu_torch.ops.kernels import stream as kstream  # noqa: E402
 from tyrant_tpu_torch.ops.kernels import traverse as ktrav  # noqa: E402
 from tyrant_tpu_torch.ops.tonemap import bloom, resolve  # noqa: E402
@@ -187,6 +192,17 @@ KEY_BYTES, SECTOR_BYTES, ACCUM_BLOCK, PIXEL_ROW_BYTES = 4, 32, 256, 2 * 16
 L2_EVICT_BYTES = 128 << 20
 # the kernels of each wrapper, by the names they carry in a profiler trace
 ACCUM_KERNELS = ("accum_kernel",)
+SHADE_KERNELS = ("shade_kernel",)
+# Shade: the bytes a slot reads (origin, direction, direct: 12 each; pixel,
+# bounces, t, ident: 4 each; last_specular, is_tri: 1 each) and writes
+# (colour, the next ray's origin, direction and direct, the shadow ray's
+# origin, direction and colour: 12 each; bounces, max_dist: 4 each;
+# survive, last_specular, valid: 1 each), a 32-byte tri_shade row a slot
+# that hits a triangle (tri_shade variant) or 12 bytes of hit normal a
+# slot that hits no sphere (kernel normals variant); floats within this of
+# the plain version (a row's largest difference over its largest magnitude)
+SHADE_READ_BYTES, SHADE_WRITE_BYTES, TRI_SHADE_ROW_BYTES = 54, 95, 32
+SHADE_RTOL = 1e-5
 STREAM_KERNELS = ("init_kernel", "level_kernel", "finish_kernel")
 
 
@@ -753,6 +769,100 @@ def accum_at_step(ren, reps: int = 20) -> dict:
     return out
 
 
+def shade_mismatches(fused, plain) -> tuple[dict, int, int]:
+    """Slots where the shade kernel's outputs (color, survive, next_rays,
+    shadow) differ from the plain version's, field by field: survive,
+    shadow.valid, the sun-or-light pick (max_dist at VERY_FAR), pixel,
+    bounces and last_specular exactly, the floats beyond SHADE_RTOL (the
+    shadow colour where the ray is valid; an invalid one's must be 0 in
+    the kernel).  Also the float elements equal bit for bit, and of how
+    many."""
+    fc, fs, fn, fsh = fused
+    pc, ps, pn, psh = plain
+    far = float(np.float32(VERY_FAR))
+    valid = psh["valid"]
+    exact = {"survive": (fs, ps), "shadow.valid": (fsh["valid"], valid),
+             "sun_pick": (fsh["max_dist"] == far, psh["max_dist"] == far),
+             **{f"next.{k}": (fn[k], pn[k])
+                for k in ("pixel", "bounces", "last_specular")}}
+    floats = {"color": (fc, pc),
+              **{f"next.{k}": (fn[k], pn[k])
+                 for k in ("origin", "direction", "direct")},
+              **{f"shadow.{k}": (fsh[k], psh[k])
+                 for k in ("origin", "direction", "max_dist", "color")}}
+    out = {name: int((a != b).sum()) for name, (a, b) in exact.items()}
+    n_eq = n_el = 0
+    for name, (a, b) in floats.items():
+        mask = valid if name == "shadow.color" else torch.ones_like(valid)
+        a2, b2 = (a, b) if a.ndim == 2 else (a[:, None], b[:, None])
+        bad = (a2 - b2).abs().amax(-1) > SHADE_RTOL * b2.abs().amax(-1)
+        out[name] = int((bad & mask).sum())
+        eq = (a2 == b2)[mask]
+        n_eq, n_el = n_eq + int(eq.sum()), n_el + eq.numel()
+    out["shadow.color.invalid_nonzero"] = int(
+        (fsh["color"][~valid] != 0).any(-1).sum())
+    return out, n_eq, n_el
+
+
+def shade_at_step(ren, steps: int = 3, reps: int = 20) -> dict:
+    """The shade kernel on the queue of ``ren``'s next step at pose 0,
+    after ``steps`` more steps (so the queue holds carried rays): the
+    variant ``ren``'s configuration takes (the traversal's hit normals
+    under ``use_kernel_normals`` on a default-material scene, else the
+    tri_shade rows), through ``ops/kernels/shade.shade``, against
+    ``render._shade_plain`` on the same tensors, with no mismatch of
+    :func:`shade_mismatches`.  The wrapper and the plain version timed
+    with CUDA events, the L2 evicted before each call (the extend stage
+    leaves the queue in device memory); the kernel alone from a profiler
+    trace, back to back.  The bound: the bytes the slots touch, each
+    once (SHADE_READ_BYTES and SHADE_WRITE_BYTES a slot, and the
+    triangle rows or hit normals the slots read).  No library offers the
+    stage, so ``library_ms`` is None."""
+    cfg, sc = ren.cfg, ren.scene
+    cam = camera_for_pose(0)
+    ren.step(cam, steps)
+    st = ren.state
+    rays = tr.merge_queue(cfg, st, cam.to_device(cfg, DEV))
+    normals = cfg.use_kernel_normals == "on" and sc.tri_default_mat
+    t, ident, is_tri, *tn = tr._intersect_scene(
+        rays["origin"], rays["direction"], sc, ren.tables, normals=normals)
+    args = (cfg, sc, ren.sky_params, ren.sun_dir, rays, t, ident, is_tri,
+            tr._salted_frame(cfg, st.frame), tn[0] if normals else None)
+    if not tr._fused_shade(cfg, sc, DEV):
+        raise AssertionError("the shade kernel does not take this queue")
+    got, n_eq, n_el = shade_mismatches(kshade.shade(*args),
+                                       tr._shade_plain(*args))
+    n = cfg.num_rays
+    hit = t < VERY_FAR
+    tri_hits = int((hit & is_tri).sum())
+    sphere_hits = int((hit & ~is_tri).sum())
+    variant = "kernel_normals" if normals else "tri_shade"
+    out = dict(variant=variant, rays=n, carried=int(st.n_carried),
+               tri_hits=tri_hits, sphere_hits=sphere_hits, mismatches=got,
+               float_elements_equal=n_eq, float_elements=n_el,
+               ms=cuda_ms(lambda: kshade.shade(*args), reps, cold=True),
+               kernel_ms=kernel_ms(lambda: kshade.shade(*args),
+                                   SHADE_KERNELS),
+               plain_ms=cuda_ms(lambda: tr._shade_plain(*args), 5,
+                                cold=True),
+               library_ms=None)
+    extra = (n - sphere_hits) * 12 if normals \
+        else tri_hits * TRI_SHADE_ROW_BYTES
+    out["bound_ms"], out["bound_by"] = bound_ms(
+        n * (SHADE_READ_BYTES + SHADE_WRITE_BYTES) + extra, 0)
+    log(f"shade {variant} at a step ({n} slots, {out['carried']} carried, "
+        f"{tri_hits} triangle and {sphere_hits} sphere hits): mismatches "
+        f"{json.dumps(got)}; float elements bit for bit {n_eq}/{n_el}; with "
+        f"the L2 evicted: kernel {out['ms']:.4f} ms, plain "
+        f"{out['plain_ms']:.4f} ms; kernel alone back to back "
+        f"{fmt_ms(out['kernel_ms'])}; bound {out['bound_ms']:.4f} ms "
+        f"({out['bound_by']})")
+    if any(got.values()):
+        raise AssertionError(f"the shade kernel differs from the plain "
+                             f"version on the {variant} queue: {got}")
+    return out
+
+
 @contextlib.contextmanager
 def tracer_on(on: bool = True):
     """The program's tracer (``utils.profiling``) on while ``on``, for
@@ -866,7 +976,7 @@ def stage_split(trace_path: Path, steps: int) -> tuple[dict, float, dict]:
             busy / 1e3 / steps, {k: v / steps for k, v in ops.items()})
 
 
-LAUNCH_KEYS = ("traverse", "traverse_wave", "accumulate", "stream")
+LAUNCH_KEYS = ("traverse", "traverse_wave", "accumulate", "stream", "shade")
 NORMALS_KEYS = ("traverse_normals", "traverse_wave_normals")
 MOMENT2_KEYS = ("accumulate_moment2",)
 
@@ -1030,7 +1140,10 @@ def phase3(ren, poses_run=(0, 1, 2), label: str = "",
            else ""))
     want = {"traverse": 0 if wave else 2 * total_steps,
             "traverse_wave": 2 * total_steps if wave else 0,
-            "accumulate": 0 if moments else total_steps, "stream": 0}
+            "accumulate": 0 if moments else total_steps, "stream": 0,
+            # the shade kernel on the base feature set, else the plain body
+            "shade": total_steps if tr._fused_shade(cfg, ren.scene,
+                                                    ren.device) else 0}
     if moments:
         want["accumulate_moment2"] = total_steps
     if launches != want:
@@ -1245,8 +1358,10 @@ def display_path(scene, tables, cfg: RenderConfig, steps: int = 8) -> dict:
     aov_launches = launches["traverse_wave"] - stepped["traverse_wave"]
     log(f"display path launches: {steps} steps {stepped}, image() "
         f"{aov_launches} wave launch(es)")
+    shade = steps if tr._fused_shade(cfg, scene, DEV) else 0
     if stepped != {"traverse": 0, "traverse_wave": 2 * steps,
-                   "accumulate": steps, "stream": 0} or aov_launches != 1 \
+                   "accumulate": steps, "stream": 0, "shade": shade} \
+            or aov_launches != 1 \
             or launches["traverse"] != 0:
         raise AssertionError(f"the display path did not run through the "
                              f"kernels: {stepped} then {launches}")
@@ -2789,7 +2904,8 @@ def strips_path(scene, tables, cfg: RenderConfig, reps: int = 8) -> dict:
         f"image {tuple(img.shape)}; {counted:.0f} paths counted over "
         f"{reps + 3} steps")
     if total["traverse"] != 4 * reps or total["accumulate"] != 2 * reps \
-            or per_strip != [{"traverse": 2, "accumulate": 1}] * 2 \
+            or per_strip != [{"traverse": 2, "accumulate": 1,
+                              "shade": 1}] * 2 \
             or not bool(torch.isfinite(img).all()) \
             or tuple(img.shape) != (cfg.height, cfg.width, 3):
         raise AssertionError(f"two strips: {total}, {per_strip}, "
@@ -2919,6 +3035,7 @@ def main() -> int:
     compare_captured(poses, cap["poses"])
     mark("captured")
     sl = kernels_at_slice(ren)
+    shd = {"tri_shade": shade_at_step(ren)}
     mark("kernels at the slice")
     disp = display_path(ren.scene, ren.tables, dataclasses.replace(
         cfg, denoise="on", bloom_strength=0.1, packet_kernel_mode="wave"))
@@ -2928,9 +3045,11 @@ def main() -> int:
     if not ren.scene.tri_default_mat:
         raise AssertionError("the main scene's triangles are not all of "
                              "the default material")
-    nrm = normals_at_extend(tr.Renderer(
-        ren.scene, dataclasses.replace(preset, fuse_step_chains="off"),
-        tables=ren.tables))
+    ren_p = tr.Renderer(ren.scene, dataclasses.replace(
+        preset, fuse_step_chains="off"), tables=ren.tables)
+    nrm = normals_at_extend(ren_p)
+    shd["kernel_normals"] = shade_at_step(ren_p)
+    del ren_p
     fly = flythrough(ren.scene, ren.tables, preset)
     mark("preset and fly-through")
     mad = phase4()
@@ -3171,7 +3290,40 @@ def main() -> int:
         {"name": "stream", "route": "cuda",
          "source": "tyrant_tpu_torch/csrc/stream.cu",
          "replaces": "tyrant_tpu/ops/pallas/stream_kernel.py:105",
-         "launches": eq["launches"]["stream"], **stream_entry}]}
+         "launches": eq["launches"]["stream"], **stream_entry},
+        {"name": "shade", "route": "cuda",
+         "source": "tyrant_tpu_torch/csrc/shade.cu",
+         # the JAX package's shade stage, which XLA fuses
+         "replaces": "tyrant_tpu/render.py:1746",
+         "launches": cap["launches"]["shade"],
+         "eager_launches": launches["shade"],
+         "wave_launches": launches_w["shade"],
+         "display_launches": disp["launches"]["shade"],
+         "display_captured_launches": disp["captured"]["launches"]["shade"],
+         "flythrough_launches": fly["normals-on-auto"]["launches"]["shade"],
+         "loaded_launches": ld["launches"]["mono"]["shade"]
+         + ld["launches"]["wave"]["shade"],
+         "sphere_free_launches": sf["launches"]["shade"],
+         "lights_launches": lights_launches("shade", "eager", "captured",
+                                            "wave"),
+         "textures_launches": path_launches(tx, "shade", "eager",
+                                            "captured", "wave"),
+         "fog_launches": path_launches(fg, "shade", "eager", "captured",
+                                       "wave", "lights"),
+         "sampling_launches": sampling_launches("shade"),
+         **frontend_launches("shade"),
+         "registers": {k: v for k, v in regs.items()
+                       if k.startswith("shade_kernel<")},
+         "mismatches": sum(sum(q["mismatches"].values())
+                           for q in shd.values()),
+         "rays_checked": sum(q["rays"] for q in shd.values()),
+         **{k: shd["tri_shade"][k] for k in ("ms", "kernel_ms", "plain_ms",
+                                             "bound_ms", "bound_by",
+                                             "library_ms")},
+         "kernel_normals": {k: shd["kernel_normals"][k]
+                            for k in ("rays", "ms", "kernel_ms", "plain_ms",
+                                      "bound_ms", "bound_by", "library_ms",
+                                      "mismatches")}}]}
     log(json.dumps({"poses": poses, "poses_wave": poses_w,
                     "queues": {q: sl[q] for q in queues + ("accumulate",)},
                     "phase2": acc,
@@ -3182,6 +3334,7 @@ def main() -> int:
                     "sphere_free": sf, "lights": lt, "captured": cap,
                     "textures": tx, "fog": fg, "sampling": smp,
                     "preset_normals": nrm, "flythrough": fly,
+                    "shade": shd,
                     "registers": regs, "stage_profile": prof,
                     "viewer": view, "cli": fe_cli, "strips": strips,
                     "bench_entry": be,

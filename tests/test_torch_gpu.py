@@ -336,7 +336,7 @@ def test_captured_step_is_bit_equal_to_eager(cuda):
                                    poses_run=(0, 1))
     assert cap["equal_after_6"]
     assert cap["launches"] == {"traverse": 2 * 28, "traverse_wave": 0,
-                               "accumulate": 28, "stream": 0}
+                               "accumulate": 28, "stream": 0, "shade": 28}
     assert all(p["device_busy_ms_per_step"] > 0 for p in cap["poses"])
     assert set(cap["chain_ms_per_step"]) == {"1", "4"}
 
@@ -352,7 +352,8 @@ def test_captured_replays_count_launches(cuda):
     ren.step(chip_smoke.camera_for_pose(0), 10)
     assert ren.replayed_steps == 9
     assert (kacc.launches, ktrav.launches) == (1, 2)  # the warm-up
-    assert ren.replayed_launches == {"traverse": 18, "accumulate": 9}
+    assert ren.replayed_launches == {"traverse": 18, "accumulate": 9,
+                                     "shade": 9}
     ren.image()
     ren.image()  # the same pose: the AOV pass is not run again
     assert ktrav.launches == 3  # its warm-up
@@ -654,8 +655,8 @@ def test_captured_step_bit_equal_under_new_fields(cuda, over):
 
 def test_strips_at_small_size(cuda):
     """chip_smoke.strips_path at 64x64 (two strips of 64x32): one strip
-    bit for bit the eager Renderer, the two strips launching both kernels
-    every step, each of them in the step split by strip, the two against
+    bit for bit the eager Renderer, the two strips launching the traversal,
+    accumulation and shade kernels every step, each of them in the step split by strip, the two against
     the CPU."""
     cfg = small_config(width=64, height=64, num_rays=1 << 14,
                        fuse_step_chains="off")
@@ -665,7 +666,8 @@ def test_strips_at_small_size(cuda):
     assert out["one_strip_bit_for_bit"] and out["card_vs_cpu"] < 0.03
     assert out["two_launches"]["traverse"] == 12
     assert out["two_launches"]["accumulate"] == 6
-    assert out["two_strip_launches"] == [{"traverse": 2, "accumulate": 1}] * 2
+    assert out["two_strip_launches"] == [{"traverse": 2, "accumulate": 1,
+                                          "shade": 1}] * 2
 
 
 def test_strip_step_with_row_offset_on_the_card(cuda):

@@ -27,6 +27,10 @@ from tyrant_tpu_torch.scene.scene import Scene
 from tyrant_tpu_torch.utils import profiling
 
 CFG = small_config(width=16, height=16, num_rays=1 << 10)
+# the most a captured 2M-ray step's tail may take on the card: the copies
+# into the graph's static buffers and the tracer's counters after the end
+# marker (0.26 ms on an H100 80GB HBM3 at 700 W)
+TAIL_MS = 0.4
 STEP_NAMES = ("render.step", "render.step.reset", "render.step.eager",
               "render.step.adapt", "render.image", "render.image.resolve")
 
@@ -231,10 +235,13 @@ def test_spans_and_stages_are_profiler_ranges(scene):
 @pytest.mark.gpu
 def test_captured_markers_on_the_card():
     """A captured 2M-ray step: every replay writes its markers in order,
-    the six stages sum to within 2% of CUDA-event time around the
-    replays, the markers start after the replay's host span began (within
-    the clock's uncertainty), a profiler names each marker kernel, and
-    each replayed step's counters equal what its state says
+    the six stages and the tail after the end marker (the copies into the
+    graph's static buffers and the counters, to the next step's raygen
+    marker) sum to within 2% of CUDA-event time around the replays, the
+    tail is at most TAIL_MS a step (so the stages cover the rest of the
+    step's device time), the markers start after the replay's host span
+    began (within the clock's uncertainty), a profiler names each marker
+    kernel, and each replayed step's counters equal what its state says
     (``chip_smoke.check_counters``)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the marker kernel has no CPU mode")
@@ -257,13 +264,21 @@ def test_captured_markers_on_the_card():
     snap = profiling.snapshot()
     steps = snap["steps"][-reps:]
     assert np.diff([s["step"] for s in steps]).tolist() == [1] * (reps - 1)
-    stage_ns = 0
+    stage_ns = tail_ns = 0
+    for s, nxt in zip(steps, steps[1:]):
+        tail_ns += nxt["marks"]["raygen"] - s["marks"]["end"]
     for s in steps:
         t = [s["marks"][m] for m in profiling.MARKERS[:profiling.END + 1]]
         assert None not in t and t == sorted(t), s
         stage_ns += t[-1] - t[0]
+    # the last step's tail taken as the mean of the others'
+    tail_ns *= reps / (reps - 1)
     ms = a.elapsed_time(b)
-    assert abs(stage_ns / 1e6 - ms) <= 0.02 * ms, (stage_ns / 1e6, ms)
+    print(f"{reps} replays: {ms:.3f} ms by CUDA events, six stages "
+          f"{stage_ns / 1e6:.3f} ms, tail {tail_ns / 1e6:.3f} ms")
+    assert 0 < tail_ns <= TAIL_MS * 1e6 * reps, (tail_ns / 1e6, reps)
+    assert abs((stage_ns + tail_ns) / 1e6 - ms) <= 0.02 * ms, \
+        (stage_ns / 1e6, tail_ns / 1e6, ms)
     clock = snap["clock"][str(steps[0]["device"])]
     replays = {s["step"]: s for s in snap["spans"]
                if s["name"] == "render.step.replay"}

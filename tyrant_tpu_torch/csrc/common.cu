@@ -8,7 +8,7 @@
 //
 // What bounds it on an H100: nothing but its launch.  A marker is one
 // thread, one 8-byte load, up to 9 stores and a read of %globaltimer (ns);
-// the count kernel one warp and 9 values.  Each costs one launch, or one
+// the count kernel one warp and 10 values.  Each costs one launch, or one
 // node of a captured graph.
 //
 // What the design does about it: one launch a stage boundary, and one

@@ -12,7 +12,8 @@ _COUNTERS = {"traverse": ("traverse", "launches"),
              "traverse_wave_normals": ("traverse", "launches_wave_normals"),
              "accumulate": ("accum", "launches"),
              "accumulate_moment2": ("accum", "launches_moment2"),
-             "stream": ("stream", "launches")}
+             "stream": ("stream", "launches"),
+             "shade": ("shade", "launches")}
 
 
 def _module(name: str):

@@ -168,6 +168,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.tyrant_stream.argtypes = [p, i, p, p, p, p, p, p, i, p, p, p, i, p,
                                   i, p, p, p]
     lib.tyrant_stream.restype = i
+    lib.tyrant_shade.argtypes = [p] * 29
+    lib.tyrant_shade.restype = i
     lib.tyrant_trace_marker.argtypes = [i, p, p, i, i, i, i, p]
     lib.tyrant_trace_marker.restype = i
     lib.tyrant_trace_count.argtypes = [p, p, p, p, i, i, p]

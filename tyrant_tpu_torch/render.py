@@ -22,8 +22,9 @@ sample, a next-event shadow ray and Russian roulette (shade), tests the
 shadow rays (connect), and runs one stable sort that both compacts the
 survivors for the next step and orders finished paths by pixel for the
 accumulation.  Extend and connect go through a traversal kernel (the
-generation ``packet_kernel_mode`` selects) and the accumulation through
-the accumulation kernel (``ops/kernels``); the rest is plain PyTorch.
+generation ``packet_kernel_mode`` selects), the accumulation through
+the accumulation kernel and, on the base feature set, shade through the
+shade kernel (``ops/kernels``); the rest is plain PyTorch.
 :class:`Renderer` also resolves the display image, optionally denoised
 with the guides of one AOV pass per pose (:func:`render_aovs`) and
 bloomed.
@@ -70,6 +71,7 @@ from .denoise import atrous_denoise
 from .device import resolve
 from .ops import kernels, rng, sobol
 from .ops.intersect import intersect_spheres, ray_sphere
+from .ops.kernels import shade as kshade
 from .ops.kernels.accum import accumulate_terminated, sentinel
 from .ops.kernels.traverse import (PacketTables, any_hit_packets,
                                    closest_hit_packets)
@@ -1638,13 +1640,60 @@ def _sobol_draws(cfg: RenderConfig, rays, row_offset: int = 0):
             lambda purpose: sobol.sample_2d(s_idx, key(purpose)))
 
 
+# What the shade kernel leaves to _shade_plain, in one place: a shade call
+# goes to the plain body where a SceneData attribute named in
+# SHADE_PLAIN_SCENE is truthy, or a RenderConfig field of
+# SHADE_KERNEL_CONFIG holds another value than the kernel's.
+SHADE_PLAIN_SCENE = (
+    "has_envmap", "has_albedo_tex", "has_textures", "has_normal_maps",
+    "has_rough_maps", "has_alpha_tex", "has_blend", "has_metal_maps",
+    "smooth_normals", "has_ggx", "has_rrefr", "has_var_ior", "n_tri_lights",
+    "n_delta_lights")
+SHADE_KERNEL_CONFIG = {"sampler": "xorshift", "mis": "off", "fog": "off",
+                       "dispersion": 0.0}
+
+
+def _fused_shade(cfg: RenderConfig, scene: SceneData, device) -> bool:
+    """Whether the shade kernel (``ops/kernels/shade.py``) takes a shade
+    call on ``device``: CUDA, every gate of SHADE_PLAIN_SCENE and
+    SHADE_KERNEL_CONFIG off, and one light sphere or none (several are a
+    light pick the kernel leaves out) among at least one sphere."""
+    return (torch.device(device).type == "cuda"
+            and all(getattr(cfg, k) == v
+                    for k, v in SHADE_KERNEL_CONFIG.items())
+            and not any(getattr(scene, k) for k in SHADE_PLAIN_SCENE)
+            and scene.n_spheres > 0 and len(scene.light_indices) <= 1)
+
+
 def _shade(cfg: RenderConfig, scene: SceneData, sky_params: skymod.SkyParams,
            sun_dir, rays, t, ident, is_tri, frame, tri_normal=None,
            row_offset: int = 0):
     """Shade every queue slot.  Returns (color, survive, next_rays,
-    shadow).  ``row_offset``: the first image row of the strip the rays
-    belong to, in every seed (0 for the whole frame).  ``tri_normal``:
-    the traversal's hit normals, which a ``tri_default_mat`` scene shades
+    shadow).  One launch of the shade kernel where :func:`_fused_shade`
+    admits the call (it counts ``shade_fused``, the slots it shaded, with
+    the tracer on), else :func:`_shade_plain`, its plain version."""
+    if not _fused_shade(cfg, scene, t.device):
+        return _shade_plain(cfg, scene, sky_params, sun_dir, rays, t, ident,
+                            is_tri, frame, tri_normal, row_offset)
+    color, survive, next_rays, shadow = kshade.shade(
+        cfg, scene, sky_params, sun_dir, rays, t, ident, is_tri, frame,
+        tri_normal if scene.tri_default_mat else None, row_offset)
+    if _prof.ON:
+        _prof.defer("shade_fused", lambda: cfg.num_rays)
+        _prof.defer("roulette_kills", lambda: (
+            (t < VERY_FAR) & (rays["bounces"] < cfg.max_bounces)
+            & ~survive).sum())
+    return color, survive, next_rays, shadow
+
+
+def _shade_plain(cfg: RenderConfig, scene: SceneData,
+                 sky_params: skymod.SkyParams, sun_dir, rays, t, ident,
+                 is_tri, frame, tri_normal=None, row_offset: int = 0):
+    """Shade every queue slot in plain PyTorch: every configuration, on
+    any device.  Returns (color, survive, next_rays, shadow).
+    ``row_offset``: the first image row of the strip the rays belong to,
+    in every seed (0 for the whole frame).  ``tri_normal``: the
+    traversal's hit normals, which a ``tri_default_mat`` scene shades
     from without the tri_shade gather (:func:`_shade_surface_fetch`).
     Under fog a segment may end in a
     medium event before its surface (pseudo-material FOG); a cutout hit

@@ -68,9 +68,11 @@ STAGES = ("raygen", "extend", "shade", "connect", "sort", "accumulate")
 MARKERS = STAGES + ("end", "image", "image_end")
 END, IMAGE, IMAGE_END = 6, 7, 8
 CLOCK = 9  # the calibration's marker, into a buffer of its own
+# shade_fused: the slots the shade kernel shaded (the queue, or 0 where
+# the step took the plain shade body)
 COUNTERS = ("fresh_rays", "tri_hits", "sphere_hits", "survivors",
             "roulette_kills", "shadow_slots", "shadow_valid", "unoccluded",
-            "flushed")
+            "flushed", "shade_fused")
 # a whole 51 s benchmark window at the fastest cell's rate (about 260
 # steps a second), and more: 2.4 MB of markers and counters a device
 RING_STEPS = 16384
