@@ -1,7 +1,11 @@
 """How ``correct`` is decided: the program's outputs at a sample drawn from
-the run's seed, against the plain reference
-(:mod:`perfbench.reference.pathtracer`) computed from the benchmark's own
-scene, poses and sun.
+the run's seed, against the configuration's plain reference (its
+``reference``, by default :mod:`perfbench.reference.pathtracer`) computed
+from the benchmark's own scene, poses and sun.  The reference's step has
+``sc.device``, ``sc.dtype``, ``cfg``, ``camera_rays`` and ``run`` as
+:class:`perfbench.reference.pathtracer.Step` has; the helpers every scene
+shares (the pixel scan, the camera basis, the salted frame and the 8-bit
+tone map) are ``pathtracer``'s.
 
 Three numbers are compared, each against its limit in
 ``perfbench/limits.json``:

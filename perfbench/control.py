@@ -47,10 +47,12 @@ def control(workload: str, seeds: list[int], seconds: float,
     cell, conf = bench.find(manifest, workload)
     config = json.loads((root / conf["file"]).read_text())
     mix = Mix.load(cell["traffic"], root / "perfbench" / "traffic")
-    base, tris, render, _ = bench.build(config, seeds[0], device, tiny)
+    base, scene_kw, render, _ = bench.build(config, seeds[0], device, tiny,
+                                            root)
     dev = base.device
-    ref32 = bench.reference_step(tris, config, render, dev)
-    ref16 = bench.reference_step(tris, config, render, dev, torch.bfloat16)
+    ref32 = bench.reference_step(scene_kw, config, render, dev, root=root)
+    ref16 = bench.reference_step(scene_kw, config, render, dev,
+                                 torch.bfloat16, root)
     for seed in seeds:
         t = time.perf_counter()
         rng = np.random.default_rng(seed % (1 << 64))

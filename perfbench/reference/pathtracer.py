@@ -702,3 +702,26 @@ def tonemap_uint8(rgb_sum, count):
     cl = cl / (cl + 1.0)
     img = torch.pow(torch.clamp(cl, 0.0, 1.0), 1.0 / 2.2)
     return torch.clamp(img * 255.0 + 0.5, 0, 255).to(torch.uint8)
+
+
+def make_step(scene_kw: dict, config: dict, render: dict, device,
+              dtype=torch.float32) -> Step:
+    """The reference's step of a configuration: the triangles and spheres
+    a scene generator made (``scene_kw``, the keyword arguments of the
+    program's ``Scene.from_triangles``: ``v0``, ``v1``, ``v2`` and
+    ``spheres``, read by their arrays) under the configuration's sun, for
+    the ``render`` fields, in ``dtype``.  A scene with anything else
+    (textures, per-triangle materials, other lights) raises: this
+    reference shades none of it."""
+    extra = sorted(set(scene_kw) - {"v0", "v1", "v2", "spheres"})
+    if extra:
+        raise ValueError(f"the reference shades no {', '.join(extra)}")
+    sph = scene_kw["spheres"]
+    names = {v: k for k, v in MATERIALS.items()}
+    rows = [{"center": c, "radius": r, "color": k, "emission": e,
+             "material": names[int(m)]}
+            for c, r, k, e, m in zip(sph.center, sph.radius, sph.color,
+                                     sph.emission, sph.refl)]
+    sc = Scene(scene_kw["v0"], scene_kw["v1"], scene_kw["v2"], rows,
+               config["scene"]["sun_position"], device, dtype)
+    return Step(sc, render)

@@ -8,7 +8,11 @@ The cell, its configuration and its traffic mix are found by name:
 (``perfbench/traffic/<mix>.json``), and each metric is a reader of its own
 (``perfbench/end_to_end/<name>.py``, ``perfbench/layer_metrics/<name>.py``)
 with a ``read(ctx)`` that returns a number, or None where it finds nothing
-to read.  Nothing here names a cell.
+to read.  The configuration file names its scene generator
+(``scene.generator``, ``perfbench/scenes/<name>.py``, default
+``terrain_spheres``) and its plain reference (``reference``,
+``perfbench/reference/<name>.py``, default ``pathtracer``).  Nothing here
+names a cell, a scene or a reference.
 
 A run builds the configuration's scene and Renderer (set-up), warms up
 every shape the mix uses, drives the mix for ``--seconds``, and checks
@@ -88,14 +92,39 @@ def metrics_of(manifest: dict, key: str, cell: str) -> list[dict]:
             if "workloads" not in m or cell in m["workloads"]]
 
 
-def reader(kind: str, name: str, directory: Path = HERE):
-    """The ``read`` function of ``<directory>/<kind>/<name>.py``."""
+def module(kind: str, name: str, directory: Path = HERE):
+    """The module ``<directory>/<kind>/<name>.py``, loaded by its path.  A
+    name with no file raises, naming the path."""
     path = directory / kind / f"{name}.py"
+    if not path.is_file():
+        raise FileNotFoundError(f"no {kind} module {name!r}: {path} "
+                                "does not exist")
     spec = importlib.util.spec_from_file_location(
         f"perfbench_{kind}_{name.replace('.', '_')}", path)
     mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def reader(kind: str, name: str, directory: Path = HERE):
+    """The ``read`` function of ``<directory>/<kind>/<name>.py``."""
+    return module(kind, name, directory).read
+
+
+def scene_generator(config: dict, root: Path = ROOT):
+    """The module whose ``make(scene) -> dict`` makes the configuration's
+    scene: ``perfbench/scenes/<scene.generator>.py``."""
+    return module("scenes", config["scene"].get("generator",
+                                                "terrain_spheres"),
+                  root / "perfbench")
+
+
+def reference_module(config: dict, root: Path = ROOT):
+    """The module whose ``make_step`` is the configuration's plain
+    reference: ``perfbench/reference/<reference>.py``."""
+    return module("reference", config.get("reference", "pathtracer"),
+                  root / "perfbench")
 
 
 def run_seed(seed: int) -> int:
@@ -120,40 +149,32 @@ class Context:
     triangles: int = 0
 
 
-def build(config: dict, seed: int, device, tiny: dict | None = None):
-    """The configuration's scene (the benchmark's own terrain and spheres)
-    and Renderer.  ``tiny`` overrides the terrain's size and the render
-    fields (the CPU tests' small runs).  Returns (renderer, scene arrays,
-    setup split)."""
+def build(config: dict, seed: int, device, tiny: dict | None = None,
+          root: Path = ROOT):
+    """The configuration's scene, made by its generator
+    (:func:`scene_generator`), and Renderer.  ``tiny`` overrides groups of
+    the scene (such as ``terrain``) and the render fields (the CPU tests'
+    small runs).  Returns (renderer, the generator's keyword arguments of
+    ``Scene.from_triangles``, render fields, setup split)."""
     t = time.perf_counter()
-    import numpy as np
     import torch
     from tyrant_tpu_torch.config import RenderConfig
     from tyrant_tpu_torch.render import Renderer
-    from tyrant_tpu_torch.scene.scene import Scene, Spheres
-
-    from perfbench import terrain
+    from tyrant_tpu_torch.scene.scene import Scene
+    gen = scene_generator(config, root)
     split = {"import_s": time.perf_counter() - t}
     t = time.perf_counter()
     sc = dict(config["scene"])
-    ter = dict(sc["terrain"])
     render = dict(config["render"])
-    if tiny:
-        ter.update(tiny.get("terrain", {}))
-        render.update(tiny.get("render", {}))
-    tris = terrain.benchmark_scene(ter["n_tris_target"], seed=ter["seed"])
-    split["terrain_s"] = time.perf_counter() - t
-    rows = sc["spheres"]
-    refl = {"DIFF": 0, "SPEC": 1, "REFR": 2, "PHONG": 3, "LIGHT": 4}
-    spheres = Spheres(
-        center=np.array([r["center"] for r in rows], np.float32),
-        radius=np.array([r["radius"] for r in rows], np.float32),
-        color=np.array([r["color"] for r in rows], np.float32),
-        emission=np.array([r["emission"] for r in rows], np.float32),
-        refl=np.array([refl[r["material"]] for r in rows], np.int32))
+    for key, over in (tiny or {}).items():
+        if key == "render":
+            render.update(over)
+        else:
+            sc[key] = {**sc[key], **over}
+    kw = gen.make(sc)
+    split["terrain_s"] = time.perf_counter() - t   # the generator's scene
     t = time.perf_counter()
-    scene = Scene.from_triangles(*tris, spheres=spheres,
-                                 builder=sc.get("builder", "native"))
+    scene = Scene.from_triangles(**kw, builder=sc.get("builder", "native"))
     split["bvh_s"] = time.perf_counter() - t
     t = time.perf_counter()
     cfg = RenderConfig(**render, seed=run_seed(seed))
@@ -162,7 +183,7 @@ def build(config: dict, seed: int, device, tiny: dict | None = None):
     if ren.device.type == "cuda":
         torch.cuda.synchronize(ren.device)
     split["tables_upload_s"] = time.perf_counter() - t
-    return ren, tris, render, split
+    return ren, kw, render, split
 
 
 def camera_factory():
@@ -300,24 +321,23 @@ def collect(driver, w, render: dict, rng):
     return steps, frames, shown
 
 
-def reference_step(tris, config: dict, render: dict, device, dtype=None):
+def reference_step(scene_kw: dict, config: dict, render: dict, device,
+                   dtype=None, root: Path = ROOT):
     """The plain reference of the configuration's step on ``device``, in
-    float32 or ``dtype``."""
+    float32 or ``dtype``: its reference module's ``make_step`` over the
+    scene its generator made (``scene_kw``)."""
     import torch
-
-    from perfbench.reference import pathtracer as refmod
-    sc = refmod.Scene(*tris, config["scene"]["spheres"],
-                      config["scene"]["sun_position"], device,
-                      dtype or torch.float32)
-    return refmod.Step(sc, render)
+    return reference_module(config, root).make_step(
+        scene_kw, config, render, device, dtype or torch.float32)
 
 
-def judge_program(steps_checked, frames_checked, shown, tris, config,
-                  render, seed: int, device) -> dict:
+def judge_program(steps_checked, frames_checked, shown, scene_kw, config,
+                  render, seed: int, device, root: Path = ROOT) -> dict:
     """The compared numbers of the program's outputs."""
     from perfbench import check
-    refs = check.follow_all(reference_step(tris, config, render, device),
-                            steps_checked + frames_checked, run_seed(seed))
+    refs = check.follow_all(
+        reference_step(scene_kw, config, render, device, root=root),
+        steps_checked + frames_checked, run_seed(seed))
     nums = check.judge(steps_checked, frames_checked,
                        check.program_outcomes(steps_checked + frames_checked),
                        refs)
@@ -422,8 +442,9 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
     config = json.loads((root / conf["file"]).read_text())
     mix = Mix.load(cell["traffic"], root / "perfbench" / "traffic")
     rng = np.random.default_rng(seed % (1 << 64))
+    reference_module(config, root)  # a missing reference fails in set-up
 
-    ren, tris, render, split = build(config, seed, device, tiny)
+    ren, scene_kw, render, split = build(config, seed, device, tiny, root)
     split["torch_import_s"] = torch_import_s
     driver = Driver(ren, mix, camera_factory())
     t = time.perf_counter()
@@ -443,7 +464,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
 
     steps_checked, frames_checked, shown = collect(driver, w, render, rng)
     ctx = Context(render=render, window=w, setup_s=setup_s,
-                  triangles=int(tris[0].shape[0]))
+                  triangles=len(scene_kw["v0"]))
     if trace:
         traced(ctx, driver, workload)
 
@@ -453,8 +474,8 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     t = time.perf_counter()
-    nums = judge_program(steps_checked, frames_checked, shown, tris, config,
-                         render, seed, dev)
+    nums = judge_program(steps_checked, frames_checked, shown, scene_kw,
+                         config, render, seed, dev, root)
     log(f"reference {time.perf_counter() - t:.3f} s")
     lims = check.limits(root / "perfbench" / "limits.json")
     checks = {k: {"value": v, "limit": lims[k]} for k, v in nums.items()}

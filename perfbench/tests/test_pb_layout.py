@@ -1,14 +1,20 @@
-"""The harness finds a configuration, a traffic mix and a metric added as
-files, by the names in ``BENCHMARK.json``: a new cell needs no edit of
-the harness.  The files below live in a temporary checkout."""
+"""The harness finds what a cell is made of by the names in
+``BENCHMARK.json`` and the configuration file: a configuration, a traffic
+mix, an end-to-end or per-layer metric, a scene generator
+(``perfbench/scenes/<name>.py``) and a plain reference
+(``perfbench/reference/<name>.py``) added as new files need no edit of a
+file the harness has, and a name with no file fails in set-up, naming
+the path.  The files below live in a temporary checkout."""
 
+import hashlib
 import json
+import re
 import shutil
 
 import pytest
 
 import pb_cpu
-from perfbench import run
+from perfbench import drive, run, terrain
 
 NEW_METRIC = '''"""Frames the window completed (a metric added as a file)."""
 
@@ -17,12 +23,78 @@ def read(ctx):
     return float(ctx.window.frames)
 '''
 
+GENERATOR = '''"""The default scene on a terrain of another seed (a scene
+generator added as a file); it records what it made."""
+
+import hashlib
+import json
+from pathlib import Path
+
+from perfbench.scenes import terrain_spheres
+
+
+def make(scene):
+    kw = terrain_spheres.make(
+        dict(scene, terrain=dict(scene["terrain"], seed=8)))
+    with open(Path(__file__).parents[2] / "calls.jsonl", "a") as f:
+        f.write(json.dumps({"by": "generator", "v0": hashlib.sha256(
+            kw["v0"].tobytes()).hexdigest()}) + "\\n")
+    return kw
+'''
+
+REFERENCE = '''"""The benchmark's reference, recording the scene it was given
+(a plain reference added as a file)."""
+
+import hashlib
+import json
+from pathlib import Path
+
+from perfbench.reference import pathtracer
+
+
+def make_step(scene_kw, config, render, device, dtype):
+    with open(Path(__file__).parents[2] / "calls.jsonl", "a") as f:
+        f.write(json.dumps({"by": "reference", "v0": hashlib.sha256(
+            scene_kw["v0"].tobytes()).hexdigest()}) + "\\n")
+    return pathtracer.make_step(scene_kw, config, render, device, dtype)
+'''
+
+
+def _digest(a) -> str:
+    return hashlib.sha256(a.tobytes()).hexdigest()
+
+
+def add_config(checkout, name: str, generator: str | None = None,
+               reference: str | None = None) -> str:
+    """A tiny configuration of the main scene, naming its own generator
+    and reference, with a ``poses`` cell: new files and manifest entries
+    only.  Returns the cell's name."""
+    cfg = json.loads((checkout / "perfbench" / "configs" /
+                      "tiny_world.json").read_text())
+    cfg["name"] = name
+    if generator:
+        cfg["scene"]["generator"] = generator
+    if reference:
+        cfg["reference"] = reference
+    (checkout / "perfbench" / "configs" / f"{name}.json").write_text(
+        json.dumps(cfg))
+    manifest = json.loads((checkout / "BENCHMARK.json").read_text())
+    manifest["configs"].append({"name": name, "source": "test",
+                                "file": f"perfbench/configs/{name}.json",
+                                "reduced": [], "why": "test"})
+    manifest["workloads"].append({"name": f"{name}.poses", "config": name,
+                                  "traffic": "poses", "chips": 1,
+                                  "why": "test"})
+    (checkout / "BENCHMARK.json").write_text(json.dumps(manifest))
+    return f"{name}.poses"
+
 
 @pytest.fixture
 def checkout(tmp_path):
     src = pb_cpu.ROOT / "perfbench"
     dst = tmp_path / "perfbench"
-    for sub in ("end_to_end", "layer_metrics", "traffic"):
+    for sub in ("end_to_end", "layer_metrics", "traffic", "scenes",
+                "reference"):
         shutil.copytree(src / sub, dst / sub)
     shutil.copy(src / "limits.json", dst / "limits.json")
     (dst / "configs").mkdir()
@@ -112,11 +184,59 @@ def test_a_per_layer_metric_added_as_a_file_is_found(checkout):
     assert read(Ctx) == 7.0
 
 
+def test_a_scene_generator_and_a_reference_added_as_files_run(checkout):
+    """A configuration that names a generator and a reference of its own,
+    added as new files: the run is correct, the scene is the generator's
+    (the terrain with seed 8, not 7), the reference was handed that same
+    scene, and no file the checkout took from the harness was edited."""
+    pb_cpu.pin_threads()
+    (checkout / "perfbench" / "scenes" / "terrain_reseeded.py").write_text(
+        GENERATOR)
+    (checkout / "perfbench" / "reference" / "pathtracer_logged.py"
+     ).write_text(REFERENCE)
+    cell = add_config(checkout, "tiny_reseeded", "terrain_reseeded",
+                      "pathtracer_logged")
+    out = run.run(cell, 2_147_483_711, 1.0, False, device="cpu",
+                  root=checkout)
+    assert out["correct"], out["checks"]
+    assert set(out["checks"]) == {"pixels_off_pct", "shadow_count_z"}
+    calls = [json.loads(line) for line in
+             (checkout / "calls.jsonl").read_text().splitlines()]
+    n = pb_cpu.TINY["terrain"]["n_tris_target"]
+    seeded = _digest(terrain.benchmark_scene(n, seed=8)[0])
+    assert seeded != _digest(terrain.benchmark_scene(n, seed=7)[0])
+    assert calls == [{"by": "generator", "v0": seeded},
+                     {"by": "reference", "v0": seeded}]
+    src = pb_cpu.ROOT / "perfbench"
+    for path in (checkout / "perfbench").rglob("*"):
+        twin = src / path.relative_to(checkout / "perfbench")
+        if path.is_file() and twin.is_file():
+            assert path.read_bytes() == twin.read_bytes(), path
+
+
+@pytest.mark.parametrize("kind,name", [("scenes", "no_such_scene"),
+                                       ("reference", "no_such_reference")])
+def test_a_missing_module_fails_in_set_up(checkout, monkeypatch, kind,
+                                          name):
+    def warm_up(self):
+        raise AssertionError("set-up went on past the missing module")
+    monkeypatch.setattr(drive.Driver, "warm_up", warm_up)
+    cell = add_config(checkout, f"tiny_{name}",
+                      name if kind == "scenes" else None,
+                      name if kind == "reference" else None)
+    path = checkout / "perfbench" / kind / f"{name}.py"
+    with pytest.raises(FileNotFoundError, match=re.escape(str(path))):
+        run.run(cell, 2_147_483_712, 1.0, False, device="cpu", root=checkout)
+
+
 def test_every_named_file_is_there():
     manifest = run.load_manifest()
     perf = pb_cpu.ROOT / "perfbench"
     for c in manifest["configs"]:
         assert (pb_cpu.ROOT / c["file"]).is_file()
+        config = json.loads((pb_cpu.ROOT / c["file"]).read_text())
+        run.scene_generator(config)
+        run.reference_module(config)
     for w in manifest["workloads"]:
         assert (perf / "traffic" / f"{w['traffic']}.json").is_file()
         run.find(manifest, w["name"])

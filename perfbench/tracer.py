@@ -33,6 +33,7 @@ prints that pass's snapshot as the last line of standard output.
 from __future__ import annotations
 
 import bisect
+import functools
 import gc
 import json
 import subprocess
@@ -244,7 +245,8 @@ def main(argv) -> int:
     cell, conf = run.find(manifest, a["workload"])
     config = json.loads((root / conf["file"]).read_text())
     mix = Mix.load(cell["traffic"], root / "perfbench" / "traffic")
-    snap = traced_pass(run.build, run.camera_factory, config, a["seed"],
+    snap = traced_pass(functools.partial(run.build, root=root),
+                       run.camera_factory, config, a["seed"],
                        a["device"], a["tiny"], mix, a["seconds"],
                        settle=a["settle"])
     print(json.dumps(snap), flush=True)
