@@ -4,9 +4,13 @@ spans of ``Renderer.step`` and ``image`` nest by their names, the stage
 markers fill a ring row a step that wraps, the per-step counters equal a
 recount from the stages' outputs, the clock fit maps its pairs exactly,
 and the Chrome export loads.  On the CPU the markers take the host clock.
-The last two tests (marked ``gpu``) hold the markers and counters of a
-captured step on the card against CUDA events and the step's state, and
-the tracer's kernels against their CPU versions.  This file imports no JAX:
+The textured cases hold the plain shade body's ``fetch_end`` marker
+and its counters of map taps, pass-throughs and GGX hits against a
+recount.  The last three tests (marked ``gpu``) hold the markers and
+counters of a captured step on the card against CUDA events and the
+step's state, the tracer's kernels against their CPU versions, and a
+captured textured step's counters against a recount.  This file imports
+no JAX:
 
     python -m pytest --noconftest -m gpu tests/test_torch_tracing.py
 """
@@ -22,6 +26,7 @@ from torch.profiler import ProfilerActivity, profile
 from tyrant_tpu_torch import render as tr
 from tyrant_tpu_torch.camera import Camera
 from tyrant_tpu_torch.config import VERY_FAR, small_config
+from tyrant_tpu_torch.scene import files
 from tyrant_tpu_torch.scene.procgen import terrain
 from tyrant_tpu_torch.scene.scene import Scene
 from tyrant_tpu_torch.utils import profiling
@@ -176,6 +181,75 @@ def test_counters_equal_a_recount(scene):
     assert c["flushed"] == n - int(new.n_carried)
 
 
+@pytest.fixture(scope="module")
+def textured():
+    """A small textured scene: maps, cutout leaves, blend panes and GGX
+    metal over the small terrain."""
+    kw = files.textured_scene(*terrain(n_quads=8, towers=2), n_leaves=2048,
+                              n_blend=1024, albedo_px=64, normal_px=64,
+                              rough_px=32, leaf_px=32)
+    return Scene.from_triangles(**kw, builder="numpy")
+
+
+def _textured_recount(ren, st, cam, monkeypatch) -> dict:
+    """The textured counters recounted from one step's stages run on
+    their own from state ``st`` (the tracer off): the hit triangles whose
+    tri_attr row names an albedo map, and the pass-throughs and GGX hits
+    that the plain shade body handed its bounce."""
+    cfg = ren.cfg
+    seen = {}
+    bounce = tr._shade_bounce
+
+    def spy(*a, **k):
+        seen.update(is_pass=k["is_pass"], ggx=k["ggx"])
+        return bounce(*a, **k)
+    monkeypatch.setattr(tr, "_shade_bounce", spy)
+    rays = tr.merge_queue(cfg, st, cam)
+    t, ident, is_tri = tr._intersect_scene(
+        rays["origin"], rays["direction"], ren.scene, ren.tables)
+    tr._shade(cfg, ren.scene, ren.sky_params, ren.sun_dir, rays, t, ident,
+              is_tri, tr._salted_frame(cfg, st.frame))
+    monkeypatch.undo()
+    tex = ren.scene.tri_attr[torch.clamp(ident, min=0).long(), 15] >= 0
+    return {"tex_hits": int((is_tri & (t < VERY_FAR) & tex).sum()),
+            "alpha_pass": int(seen["is_pass"].sum()),
+            "ggx_hits": int(seen["ggx"][0].sum())}
+
+
+def test_textured_counters_equal_a_recount(textured, monkeypatch):
+    """One step of ``render_step`` on a textured scene with the tracer on:
+    ``tex_hits``, ``alpha_pass`` and ``ggx_hits`` against a recount from
+    the same state, every one of them above 0, and the ``fetch_end``
+    marker between the shade and connect markers."""
+    cfg = dataclasses.replace(CFG, num_rays=1 << 12)
+    ren = tr.Renderer(textured, cfg, device="cpu")
+    ren.step(_cam(0.0), 2)          # carried rays in the queue
+    st = ren.state
+    cam = _cam(0.0).to_device(cfg, ren.device)
+    want = _textured_recount(ren, st, cam, monkeypatch)
+    profiling.enable()
+    tr.render_step(st, ren.scene, cam, ren.sun_dir, cfg=cfg,
+                   tables=ren.tables, sky_params=ren.sky_params)
+    (rec,) = profiling.snapshot()["steps"]
+    assert {k: rec["counts"][k] for k in want} == want
+    assert min(want.values()) > 0, want
+    assert want["alpha_pass"] < want["tex_hits"] <= rec["counts"]["tri_hits"]
+    assert rec["counts"]["shade_fused"] == 0
+    m = rec["marks"]
+    assert m["shade"] <= m["fetch_end"] <= m["connect"]
+
+
+def test_untextured_step_counts_no_texture_work(scene):
+    profiling.enable()
+    ren = tr.Renderer(scene, CFG, device="cpu")
+    _frames(ren, 2)
+    for s in profiling.snapshot()["steps"]:
+        assert s["counts"]["tex_hits"] == s["counts"]["alpha_pass"] \
+            == s["counts"]["ggx_hits"] == 0
+        assert s["marks"]["shade"] <= s["marks"]["fetch_end"] \
+            <= s["marks"]["connect"]
+
+
 def test_ring_wraps_and_counts_a_step_a_step(scene):
     profiling.enable(ring_steps=4)
     ren = tr.Renderer(scene, CFG, device="cpu")
@@ -318,3 +392,31 @@ def test_trace_kernels_against_plain_on_the_card():
                     "mode")
     import chip_smoke
     chip_smoke.trace_ring_check(steps=40, slots=16)
+
+
+@pytest.mark.gpu
+def test_textured_counters_on_the_card(textured, monkeypatch):
+    """One captured 2M-ray step on a textured scene on the card: its
+    ``tex_hits``, ``alpha_pass`` and ``ggx_hits`` against a recount from
+    the step's stages run eagerly on the state it started from, with the
+    camera buffer the graph reads, and its ``fetch_end`` marker between
+    the shade and connect markers."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the marker kernel has no CPU mode")
+    dev = torch.device("cuda")
+    cfg = small_config(width=1920, height=1080, num_rays=1 << 21)
+    profiling.enable()
+    ren = tr.Renderer(textured, cfg, device=dev)
+    assert ren.captured
+    ren.step(_cam(0.0), 3)
+    profiling.disable()             # the recount records nothing
+    st = tr.RenderState(**{f.name: getattr(ren.state, f.name).clone()
+                           for f in dataclasses.fields(tr.RenderState)})
+    want = _textured_recount(ren, st, ren._cam, monkeypatch)
+    ren.step(_cam(0.0), 1)          # one replay of the captured step
+    rec = profiling.snapshot()["steps"][-1]
+    print("textured counters", want, rec["counts"])
+    assert {k: rec["counts"][k] for k in want} == want
+    assert min(want.values()) > 0, want
+    m = rec["marks"]
+    assert m["shade"] <= m["fetch_end"] <= m["connect"]

@@ -892,6 +892,9 @@ def _shade_surface_fetch(cfg: RenderConfig, scene: SceneData, rays, o,
                 channels=4 if scene.has_alpha_tex else 3, uv_fp=uv_fp)
             color_tri = color_tri * torch.where(_col(texid >= 0),
                                                 albedo[:, :3], 1.0)
+            if _prof.ON:
+                _prof.defer("tex_hits", lambda: (hit & is_tri
+                                                 & (texid >= 0)).sum())
             if scene.has_alpha_tex:
                 cut_alpha = torch.where(texid >= 0, albedo[:, 3], 1.0)
         if scene.smooth_normals:
@@ -1698,7 +1701,10 @@ def _shade_plain(cfg: RenderConfig, scene: SceneData,
     Under fog a segment may end in a
     medium event before its surface (pseudo-material FOG); a cutout hit
     below its alpha threshold (0.5, or a uniform on a blend triangle)
-    passes through (PASS): no shading, no NEE, no colour."""
+    passes through (PASS): no shading, no NEE, no colour.  With the tracer
+    on, the ``fetch_end`` marker follows the surface fetch, and the
+    counters ``tex_hits``, ``alpha_pass`` and ``ggx_hits`` are left for
+    the step's end."""
     n = cfg.num_rays
     eps = cfg.epsilon
     d = rays["direction"]
@@ -1721,6 +1727,8 @@ def _shade_plain(cfg: RenderConfig, scene: SceneData,
      cut_alpha, blend_tri) = _shade_surface_fetch(
         cfg, scene, rays, o, t_safe, ident, is_tri, hit, frame, slot,
         tri_normal, row_offset)
+    if _prof.ON:
+        _prof.mark(d.device, _prof.FETCH_END)
     refl = torch.where(is_sphere, srow[:, 10].to(torch.int32), refl_tri)
     refl = torch.where(hit, refl, torch.full_like(refl, DIFF))
     obj_color = torch.where(_col(is_sphere), srow[:, 4:7], color_tri)
@@ -1752,6 +1760,8 @@ def _shade_plain(cfg: RenderConfig, scene: SceneData,
         if fog_on:
             is_pass = is_pass & ~is_fog
         refl = torch.where(is_pass, PASS, refl)
+        if _prof.ON:
+            _prof.defer("alpha_pass", lambda: is_pass.sum())
 
     # throughput *= color for materials except REFR/LIGHT (and RREFR,
     # coloured by Beer-Lambert, GGX, whose colour is its Fresnel F0, and
@@ -1766,6 +1776,8 @@ def _shade_plain(cfg: RenderConfig, scene: SceneData,
         mul_mask = mul_mask & (refl != GGX)
         ggx_rough = torch.where(is_sphere, srow[:, 11], rough_tri)
         ggx = (hit & (refl == GGX), ggx_rough * ggx_rough)
+        if _prof.ON:
+            _prof.defer("ggx_hits", lambda: ggx[0].sum())
     direct = rays["direct"] * torch.where(_col(mul_mask), obj_color,
                                           torch.ones_like(obj_color))
 

@@ -20,8 +20,11 @@ records
   writes the device clock (``%globaltimer``, ns) into a ring of
   ``ring_steps`` rows a device, one row a render step, a column a marker
   (:data:`MARKERS`: the start of each of :data:`STAGES`, the step's end,
-  the display resolve's start and end).  Captured into a CUDA graph, the
-  markers record every replay with no host sync.  A stage
+  the display resolve's start and end; then :data:`INNER`, the markers
+  inside a stage: ``fetch_end``, where the plain shade body's surface
+  fetch ends, which a step shaded by the shade kernel leaves empty).
+  Captured into a CUDA graph, the markers record every replay with no
+  host sync.  A stage
   (:func:`stage`) launches its marker and, under a profiler, is also a
   ``record_function`` range of its name, opened after the marker.  With
   the tracer off a stage is still that range under a profiler, so an
@@ -67,12 +70,18 @@ OFF = contextlib.nullcontext()  # what an instrumentation point enters when off
 STAGES = ("raygen", "extend", "shade", "connect", "sort", "accumulate")
 MARKERS = STAGES + ("end", "image", "image_end")
 END, IMAGE, IMAGE_END = 6, 7, 8
-CLOCK = 9  # the calibration's marker, into a buffer of its own
+INNER = ("fetch_end",)  # markers inside a stage, after MARKERS in a row
+FETCH_END = 9
+COLUMNS = MARKERS + INNER  # a step's row of the ring
+CLOCK = 10  # the calibration's marker, into a buffer of its own
 # shade_fused: the slots the shade kernel shaded (the queue, or 0 where
-# the step took the plain shade body)
+# the step took the plain shade body); tex_hits, alpha_pass, ggx_hits: the
+# plain body's triangle hits that tap an albedo map, slots whose hit
+# passed through a cutout or blend surface, and hits shaded as the GGX
+# conductor (0 where the shade kernel shaded)
 COUNTERS = ("fresh_rays", "tri_hits", "sphere_hits", "survivors",
             "roulette_kills", "shadow_slots", "shadow_valid", "unoccluded",
-            "flushed", "shade_fused")
+            "flushed", "shade_fused", "tex_hits", "alpha_pass", "ggx_hits")
 # a whole 51 s benchmark window at the fastest cell's rate (about 260
 # steps a second), and more: 2.4 MB of markers and counters a device
 RING_STEPS = 16384
@@ -94,7 +103,7 @@ def _capturing(device: torch.device) -> bool:
 
 
 class _Ring:
-    """A device's marker rows [slots, len(MARKERS)], counter rows [slots,
+    """A device's marker rows [slots, len(COLUMNS)], counter rows [slots,
     len(COUNTERS)] and running totals, its step counter (advanced by each
     step's end marker) and the host's count of the steps it launched."""
 
@@ -102,10 +111,11 @@ class _Ring:
         def zeros(*shape):
             return torch.zeros(shape, dtype=torch.int64, device=device)
         self.device, self.slots = device, slots
-        self.marks = zeros(slots, len(MARKERS))
+        self.marks = zeros(slots, len(COLUMNS))
         self.counts = zeros(slots, len(COUNTERS))
         self.total = zeros(len(COUNTERS))
         self.step = zeros()
+        self.zero = zeros()  # a missing counter's value: no fill a step
         self.clock = zeros(1, CLOCK + 1)  # the calibration marker's row
         self.clock_step = zeros()
         self.host_steps = 0
@@ -290,7 +300,7 @@ def span(name: str) -> _Span:
 
 
 def mark(device, k: int) -> None:
-    """Marker ``k`` of :data:`MARKERS` on ``device``'s current stream:
+    """Marker ``k`` of :data:`COLUMNS` on ``device``'s current stream:
     marker 0 opens the step's row, :data:`END` advances the step, the
     image markers go into the row of the step last ended.  Call only when
     ON."""
@@ -298,7 +308,7 @@ def mark(device, k: int) -> None:
     r = t.ring(device)
     if k == 0:
         t.deferred.clear()
-    _launch_marker(r.marks, r.step, k, back=int(k >= IMAGE),
+    _launch_marker(r.marks, r.step, k, back=int(k in (IMAGE, IMAGE_END)),
                    advance=k == END)
     t.last = str(r.device)
     if k == END and not _capturing(r.device):
@@ -350,6 +360,7 @@ def count(device, **values) -> None:
     r = t.ring(device)
     v = torch.stack([
         x.to(torch.int64) if isinstance(x, torch.Tensor)
+        else r.zero if x == 0
         else torch.full((), x, dtype=torch.int64, device=r.device)
         for x in (values.get(c, 0) for c in COUNTERS)])
     _launch_count(r, v)
@@ -362,7 +373,8 @@ def snapshot() -> dict | None:
 
     - ``spans``: [{"name", "start_ns", "end_ns", "parent" (an index into
       ``spans`` or None), "step"}] in the order they opened;
-    - ``steps``: [{"device", "step", "marks": {marker: host ns or None},
+    - ``steps``: [{"device", "step", "marks": {marker of
+      :data:`COLUMNS`: host ns or None},
       "counts": {counter: int}}] for each step whose row the ring still
       holds, oldest first; device times are mapped onto the host clock;
       a step's index counts from the first after :func:`enable` on its
@@ -387,7 +399,7 @@ def snapshot() -> dict | None:
             out["steps"].append({
                 "device": key, "step": s - first,
                 "marks": {m: (to_host(clock, v) if v else None)
-                          for m, v in zip(MARKERS, marks[row])},
+                          for m, v in zip(COLUMNS, marks[row])},
                 "counts": dict(zip(COUNTERS, counts[row]))})
         out["counters"][key] = dict(zip(
             COUNTERS, (r.total - total0.to(r.device)).cpu().tolist()))
@@ -397,7 +409,8 @@ def snapshot() -> dict | None:
 def _chrome_events(snap: dict) -> list[dict]:
     """A :func:`snapshot` as Chrome trace events (microseconds on the host
     clock): host spans on one track; each device's stages, from a marker
-    to the next, and its display resolves on two more; its counters, a
+    to the next, its display resolves and its shade stages' surface
+    fetches (``shade`` to ``fetch_end``) on three more; its counters, a
     point at each step's end."""
     ev = [{"ph": "M", "name": "process_name", "pid": "host",
            "args": {"name": "host"}}]
@@ -412,11 +425,13 @@ def _chrome_events(snap: dict) -> list[dict]:
     for rec in snap["steps"]:
         pid, m = f"device {rec['device']}", rec["marks"]
         for name, a, b in [*zip(STAGES, MARKERS[:END], MARKERS[1:END + 1]),
-                           ("image", "image", "image_end")]:
+                           ("image", "image", "image_end"),
+                           ("surface_fetch", "shade", "fetch_end")]:
             if m[a] is not None and m[b] is not None:
                 ev.append({"ph": "X", "cat": "stage", "name": name,
                            "pid": pid,
-                           "tid": "image" if name == "image" else "step",
+                           "tid": name if name in ("image", "surface_fetch")
+                           else "step",
                            "ts": m[a] / 1e3, "dur": (m[b] - m[a]) / 1e3,
                            "args": {"step": rec["step"]}})
         if m["end"] is not None:
