@@ -64,9 +64,10 @@ the textures path: ``scene.files.textured_scene`` on the terrain (albedo,
 normal and roughness/metal maps, 65,536 alpha-cutout leaves and 1,024
 blend triangles, clamp and mirrored wraps, from numpy in memory), eager
 and captured at the three poses under "bilinear", eager at pose 0 under
-"nearest", "trilinear" and with the wave kernel, one texture tap timed as
-``tex_data[idx]`` against ``index_select``, and ``image()`` with the
-denoiser.  Each logs shade's device time with its row gathers counted
+"nearest", "trilinear" and with the wave kernel, the textured shade
+kernels (``csrc/shade_textured.cu``) against the plain body on the queue
+after 3 more steps under "bilinear" and "nearest" (``shade_at_step``),
+and ``image()`` with the denoiser.  Each logs shade's device time with its row gathers counted
 from the trace, holds the traversal kernels against the plain walk on its
 queues and the accumulation on its step's queue, and compares a 32x32
 render on the card with the CPU's.
@@ -203,6 +204,24 @@ SHADE_KERNELS = ("shade_kernel",)
 # the plain version (a row's largest difference over its largest magnitude)
 SHADE_READ_BYTES, SHADE_WRITE_BYTES, TRI_SHADE_ROW_BYTES = 54, 95, 32
 SHADE_RTOL = 1e-5
+# The textured variant's two kernels (csrc/shade_textured.cu).  The
+# surface kernel reads the ray fields again (origin, direction: 12 each;
+# t, ident, pixel: 4 each; is_tri: 1), a triangle hit's tri_shade row
+# and 96 bytes of its tri_attr row, a 32-byte sector a texel tap, and
+# writes the 32-byte surface record, which the shade kernel reads back in
+# place of is_tri.
+SURFACE_KERNELS = ("surface_kernel",)
+SHADE_TEXTURED_KERNELS = ("shade_textured_kernel",)
+SURFACE_RAY_BYTES, TRI_ATTR_READ_BYTES, TAP_BYTES, RECORD_BYTES = \
+    37, 96, 32, 32
+# the figures of textured_at_step that the kernels line carries
+TEXTURED_AT_STEP = ("rays", "mismatches", "by_category", "ms", "surface_ms",
+                    "shade_ms", "surface_kernel_ms", "shade_kernel_ms",
+                    "plain_ms", "bound_ms", "surface_bound_ms",
+                    "shade_bound_ms", "bound_by", "library_ms")
+# what a slot of the textured queue shaded, by the surface record
+TEXTURED_CATEGORIES = ("miss", "sphere", "mapped_diff", "ggx", "cutout_pass",
+                       "blend_shaded", "blend_passed", "other")
 STREAM_KERNELS = ("init_kernel", "level_kernel", "finish_kernel")
 
 
@@ -769,14 +788,20 @@ def accum_at_step(ren, reps: int = 20) -> dict:
     return out
 
 
-def shade_mismatches(fused, plain) -> tuple[dict, int, int]:
-    """Slots where the shade kernel's outputs (color, survive, next_rays,
-    shadow) differ from the plain version's, field by field: survive,
-    shadow.valid, the sun-or-light pick (max_dist at VERY_FAR), pixel,
-    bounces and last_specular exactly, the floats beyond SHADE_RTOL (the
-    shadow colour where the ray is valid; an invalid one's must be 0 in
-    the kernel).  Also the float elements equal bit for bit, and of how
-    many."""
+# the outputs that a miss of the textured variant leaves unequal: the
+# plain body computes them from triangle 0's maps, and no stage reads them
+MISS_UNREAD = ("next.origin", "shadow.origin", "shadow.direction",
+               "shadow.max_dist")
+
+
+def shade_bad_slots(fused, plain, hit_mask=None) -> dict:
+    """The slots where the shade kernel's outputs (color, survive,
+    next_rays, shadow) differ from the plain version's, a bool mask a
+    field: survive, shadow.valid, the sun-or-light pick (max_dist at
+    VERY_FAR), pixel, bounces and last_specular exactly, the floats beyond
+    SHADE_RTOL (a row's largest difference over its largest magnitude),
+    the shadow colour where the ray is valid, the fields of MISS_UNREAD
+    where ``hit_mask`` holds (every slot when None)."""
     fc, fs, fn, fsh = fused
     pc, ps, pn, psh = plain
     far = float(np.float32(VERY_FAR))
@@ -790,34 +815,88 @@ def shade_mismatches(fused, plain) -> tuple[dict, int, int]:
                  for k in ("origin", "direction", "direct")},
               **{f"shadow.{k}": (fsh[k], psh[k])
                  for k in ("origin", "direction", "max_dist", "color")}}
-    out = {name: int((a != b).sum()) for name, (a, b) in exact.items()}
-    n_eq = n_el = 0
+    out = {name: a != b for name, (a, b) in exact.items()}
     for name, (a, b) in floats.items():
-        mask = valid if name == "shadow.color" else torch.ones_like(valid)
         a2, b2 = (a, b) if a.ndim == 2 else (a[:, None], b[:, None])
-        bad = (a2 - b2).abs().amax(-1) > SHADE_RTOL * b2.abs().amax(-1)
-        out[name] = int((bad & mask).sum())
-        eq = (a2 == b2)[mask]
+        out[name] = (a2 - b2).abs().amax(-1) > SHADE_RTOL * b2.abs().amax(-1)
+    out["shadow.color"] &= valid
+    if hit_mask is not None:
+        for k in MISS_UNREAD:
+            out[k] &= hit_mask
+    return out
+
+
+def shade_mismatches(fused, plain, hit_mask=None) -> tuple[dict, int, int]:
+    """The counts of :func:`shade_bad_slots` a field, and an invalid
+    shadow ray's colour, which must be 0 in the kernel.  Also the float
+    elements compared that are equal bit for bit, and of how many."""
+    fc, fs, fn, fsh = fused
+    pc, ps, pn, psh = plain
+    valid = psh["valid"]
+    out = {k: int(v.sum()) for k, v in shade_bad_slots(
+        fused, plain, hit_mask).items()}
+    n_eq = n_el = 0
+    for a, b, mask in [(fc, pc, None)] \
+            + [(fn[k], pn[k], hit_mask if k == "origin" else None)
+               for k in ("origin", "direction", "direct")] \
+            + [(fsh[k], psh[k], valid if k == "color" else hit_mask)
+               for k in ("origin", "direction", "max_dist", "color")]:
+        eq = a == b
+        eq = eq if mask is None else eq[mask]
         n_eq, n_el = n_eq + int(eq.sum()), n_el + eq.numel()
     out["shadow.color.invalid_nonzero"] = int(
         (fsh["color"][~valid] != 0).any(-1).sum())
     return out, n_eq, n_el
 
 
+def textured_categories(sc, t, ident, is_tri, record) -> torch.Tensor:
+    """What each slot of a textured queue shaded, as an index into
+    TEXTURED_CATEGORIES, from the surface record's material word and the
+    hit triangle's blend flag (its tri_shade refl lane)."""
+    word = record.view(torch.int32)[:, 7]
+    refl = word & 0xFF
+    hit = t < VERY_FAR
+    tid = ident.clamp(0, sc.tri_shade.shape[0] - 1).long()
+    lane = sc.tri_shade[tid, 3].to(torch.int32)
+    lane = torch.where(lane >= 32, lane - 32, lane)
+    blend = is_tri & (lane >= 16) if sc.has_blend else torch.zeros_like(hit)
+    mapped = (word & kshade.TEX_HIT_BIT) != 0
+    tri = hit & is_tri
+    cat = torch.full_like(refl, TEXTURED_CATEGORIES.index("other"))
+    rules = [("mapped_diff", tri & ~blend & mapped & (refl == 0)),
+             ("ggx", tri & (refl == tr.GGX)),
+             ("cutout_pass", tri & ~blend & (refl == tr.PASS)),
+             ("blend_shaded", tri & blend & (refl != tr.PASS)),
+             ("blend_passed", tri & blend & (refl == tr.PASS)),
+             ("sphere", hit & ~is_tri), ("miss", ~hit)]
+    for name, m in rules:
+        cat = torch.where(m, TEXTURED_CATEGORIES.index(name), cat)
+    return cat
+
+
+def by_category(cat, bad) -> dict:
+    """{category: (slots, slots off)} of a textured queue."""
+    return {c: (int((cat == k).sum()), int(((cat == k) & bad).sum()))
+            for k, c in enumerate(TEXTURED_CATEGORIES)}
+
+
 def shade_at_step(ren, steps: int = 3, reps: int = 20) -> dict:
-    """The shade kernel on the queue of ``ren``'s next step at pose 0,
+    """The shade kernels on the queue of ``ren``'s next step at pose 0,
     after ``steps`` more steps (so the queue holds carried rays): the
-    variant ``ren``'s configuration takes (the traversal's hit normals
-    under ``use_kernel_normals`` on a default-material scene, else the
-    tri_shade rows), through ``ops/kernels/shade.shade``, against
-    ``render._shade_plain`` on the same tensors, with no mismatch of
-    :func:`shade_mismatches`.  The wrapper and the plain version timed
-    with CUDA events, the L2 evicted before each call (the extend stage
-    leaves the queue in device memory); the kernel alone from a profiler
-    trace, back to back.  The bound: the bytes the slots touch, each
-    once (SHADE_READ_BYTES and SHADE_WRITE_BYTES a slot, and the
-    triangle rows or hit normals the slots read).  No library offers the
-    stage, so ``library_ms`` is None."""
+    variant ``ren``'s configuration takes (the textured one on a scene
+    with a flag of ``render.SHADE_TEXTURED_SCENE``; else the base kernel
+    with the traversal's hit normals under ``use_kernel_normals`` on a
+    default-material scene, or with the tri_shade rows), through
+    ``ops/kernels/shade``, against ``render._shade_plain`` on the same
+    tensors, with no mismatch of :func:`shade_mismatches` (the textured
+    variant's MISS_UNREAD compared on the hits: a miss's are never read).
+    The wrapper and the plain version timed with CUDA events, the L2
+    evicted before each call (the extend stage leaves the queue in device
+    memory); the kernel alone from a profiler trace, back to back.  The
+    bound: the bytes the slots touch, each once (SHADE_READ_BYTES and
+    SHADE_WRITE_BYTES a slot, and the triangle rows or hit normals the
+    slots read; the textured variant's are :func:`textured_bound`'s).  No
+    library offers the stage, so ``library_ms`` is None."""
     cfg, sc = ren.cfg, ren.scene
     cam = camera_for_pose(0)
     ren.step(cam, steps)
@@ -830,6 +909,8 @@ def shade_at_step(ren, steps: int = 3, reps: int = 20) -> dict:
             tr._salted_frame(cfg, st.frame), tn[0] if normals else None)
     if not tr._fused_shade(cfg, sc, DEV):
         raise AssertionError("the shade kernel does not take this queue")
+    if tr._textured_shade(sc):
+        return textured_at_step(ren, args, reps)
     got, n_eq, n_el = shade_mismatches(kshade.shade(*args),
                                        tr._shade_plain(*args))
     n = cfg.num_rays
@@ -860,6 +941,120 @@ def shade_at_step(ren, steps: int = 3, reps: int = 20) -> dict:
     if any(got.values()):
         raise AssertionError(f"the shade kernel differs from the plain "
                              f"version on the {variant} queue: {got}")
+    return out
+
+
+def textured_bound(args) -> dict:
+    """The textured variant's bound a kernel, in bytes at HBM rate, on
+    the queue of ``args`` (``render._shade``'s): the surface kernel's ray
+    fields and record a slot, the tri_shade row and 96 bytes of the
+    tri_attr row of each distinct hit triangle, and each distinct 32-byte
+    atlas sector that the taps of the hit triangles' maps touch (the
+    plain body's taps, 4 a map under "bilinear", 1 under "nearest", for
+    each of the albedo, normal and rough maps a triangle has); the shade
+    kernel's ray fields (the base kernel's reads less is_tri), the
+    record read back, the base kernel's writes.  Every byte is counted
+    once, so neighbouring rays that share a sector or a triangle in the
+    L2 do not lower the bound below the time it shows."""
+    cfg, sc, t, ident, is_tri = args[0], args[1], args[5], args[6], args[7]
+    n = cfg.num_rays
+    tri = (t < VERY_FAR) & is_tri
+    tid = ident.clamp(0, sc.tri_attr.shape[0] - 1).long()
+    taps, tap_rows = [], tr._tap_rows
+
+    def record(table, idx):  # the plain body's row gathers of the atlas
+        if table is sc.tex_data:
+            taps.append(idx)
+        return tap_rows(table, idx)
+    tr._tap_rows = record
+    try:
+        tr._shade_plain(*args)
+    finally:
+        tr._tap_rows = tap_rows
+    k = 4 if cfg.texture_filter == "bilinear" else 1
+    lanes = [lane for lane, gate in ((15, sc.has_albedo_tex),
+                                     (26, sc.has_normal_maps),
+                                     (31, sc.has_rough_maps)) if gate]
+    if len(taps) != k * len(lanes):
+        raise AssertionError(f"{len(taps)} taps recorded, {k} a map for "
+                             f"{len(lanes)} maps")
+    rows = [idx[tri & (sc.tri_attr[tid, lane] >= 0)]
+            for j, lane in enumerate(lanes) for idx in taps[k * j:k * j + k]]
+    used = torch.cat(rows) if rows else torch.zeros(0, dtype=torch.long)
+    sectors = int(torch.unique(used.long() // 2).numel())  # 16-byte rows
+    tris = int(torch.unique(ident[tri]).numel())
+    surface_b = n * (SURFACE_RAY_BYTES + RECORD_BYTES) + tris * (
+        TRI_SHADE_ROW_BYTES + TRI_ATTR_READ_BYTES) + sectors * TAP_BYTES
+    shade_b = n * (SHADE_READ_BYTES - 1 + RECORD_BYTES + SHADE_WRITE_BYTES)
+    both, by = bound_ms(surface_b + shade_b, 0)
+    return dict(taps=int(used.numel()), tap_sectors=sectors,
+                tri_hits=int(tri.sum()), distinct_tris=tris,
+                surface_bound_ms=bound_ms(surface_b, 0)[0],
+                shade_bound_ms=bound_ms(shade_b, 0)[0],
+                bound_ms=both, bound_by=by)
+
+
+def textured_at_step(ren, args, reps: int = 20) -> dict:
+    """:func:`shade_at_step` for the textured variant: its two kernels
+    (``kshade.surface``, then ``kshade.shade_textured`` from the record)
+    against the plain body, the slots off counted by what each shaded
+    (:data:`TEXTURED_CATEGORIES`), each kernel timed alone with the L2
+    evicted and from a trace, the two together, the plain body, and
+    :func:`textured_bound`; the kernels' registers and spills."""
+    cfg, sc = ren.cfg, ren.scene
+    (_, _, sky, sun, rays, t, ident, is_tri, frame, tn) = args
+
+    def surf():
+        return kshade.surface(cfg, sc, rays, t, ident, is_tri, frame, tn)
+    rec = surf()
+
+    def shade_rest():
+        return kshade.shade_textured(cfg, sc, sky, sun, rays, t, ident,
+                                     is_tri, frame, rec)
+
+    def both():
+        return kshade.shade_textured(cfg, sc, sky, sun, rays, t, ident,
+                                     is_tri, frame, surf())
+    fused, plain = shade_rest(), tr._shade_plain(*args)
+    hit = t < VERY_FAR
+    got, n_eq, n_el = shade_mismatches(fused, plain, hit_mask=hit)
+    bad = torch.zeros_like(hit)
+    for v in shade_bad_slots(fused, plain, hit_mask=hit).values():
+        bad |= v
+    cats = by_category(textured_categories(sc, t, ident, is_tri, rec), bad)
+    n = cfg.num_rays
+    regs = build.registers()
+    out = dict(variant="textured", filter=cfg.texture_filter, rays=n,
+               carried=int(ren.state.n_carried), mismatches=got,
+               by_category=cats, float_elements_equal=n_eq,
+               float_elements=n_el,
+               surface_ms=cuda_ms(surf, reps, cold=True),
+               shade_ms=cuda_ms(shade_rest, reps, cold=True),
+               ms=cuda_ms(both, reps, cold=True),
+               surface_kernel_ms=kernel_ms(surf, SURFACE_KERNELS),
+               shade_kernel_ms=kernel_ms(shade_rest, SHADE_TEXTURED_KERNELS),
+               plain_ms=cuda_ms(lambda: tr._shade_plain(*args), 5,
+                                cold=True),
+               library_ms=None,
+               registers={k: regs.get(k) for k in (
+                   "surface_kernel", "shade_textured_kernel")},
+               **textured_bound(args))
+    log(f"shade textured ({cfg.texture_filter}) at a step ({n} slots, "
+        f"{out['carried']} carried, {out['tri_hits']} triangle hits on "
+        f"{out['distinct_tris']} triangles, {out['taps']} taps on "
+        f"{out['tap_sectors']} sectors): mismatches {json.dumps(got)}; (slots, slots "
+        f"off) by what they shaded {json.dumps(cats)}; float elements bit "
+        f"for bit {n_eq}/{n_el}; with the L2 evicted: surface "
+        f"{out['surface_ms']:.4f} ms (bound {out['surface_bound_ms']:.4f}), "
+        f"shade {out['shade_ms']:.4f} ms (bound "
+        f"{out['shade_bound_ms']:.4f}), both {out['ms']:.4f} ms (bound "
+        f"{out['bound_ms']:.4f}), plain {out['plain_ms']:.4f} ms; alone "
+        f"back to back: surface {fmt_ms(out['surface_kernel_ms'])}, shade "
+        f"{fmt_ms(out['shade_kernel_ms'])}; registers "
+        f"{json.dumps(out['registers'])}")
+    if any(got.values()):
+        raise AssertionError(f"the textured shade kernels differ from the "
+                             f"plain version: {got}, {cats}")
     return out
 
 
@@ -979,6 +1174,8 @@ def stage_split(trace_path: Path, steps: int) -> tuple[dict, float, dict]:
 LAUNCH_KEYS = ("traverse", "traverse_wave", "accumulate", "stream", "shade")
 NORMALS_KEYS = ("traverse_normals", "traverse_wave_normals")
 MOMENT2_KEYS = ("accumulate_moment2",)
+# the textured variant's surface and shade kernels
+TEXTURED_KEYS = ("shade_surface", "shade_textured")
 
 
 def reset_launches(*renderers) -> None:
@@ -1131,8 +1328,11 @@ def phase3(ren, poses_run=(0, 1, 2), label: str = "",
             + "; device ops a step " + " ".join(f"{k} {v:g}"
                                                 for k, v in ops.items())))
     moments = tr._moments(cfg)
-    launches = read_launches(ren, keys=LAUNCH_KEYS + MOMENT2_KEYS
-                             if moments else LAUNCH_KEYS)
+    fused = tr._fused_shade(cfg, ren.scene, ren.device)
+    textured = fused and tr._textured_shade(ren.scene)
+    keys = LAUNCH_KEYS + (MOMENT2_KEYS if moments else ()) \
+        + (TEXTURED_KEYS if textured else ())
+    launches = read_launches(ren, keys=keys)
     if ren.captured:
         check_replays(ren, total_steps)
     log(f"phase 3 {tag} launches over {total_steps} steps: {launches}"
@@ -1141,9 +1341,11 @@ def phase3(ren, poses_run=(0, 1, 2), label: str = "",
     want = {"traverse": 0 if wave else 2 * total_steps,
             "traverse_wave": 2 * total_steps if wave else 0,
             "accumulate": 0 if moments else total_steps, "stream": 0,
-            # the shade kernel on the base feature set, else the plain body
-            "shade": total_steps if tr._fused_shade(cfg, ren.scene,
-                                                    ren.device) else 0}
+            # the base shade kernel, the textured variant's two kernels,
+            # or the plain body
+            "shade": total_steps if fused and not textured else 0}
+    if textured:
+        want.update(dict.fromkeys(TEXTURED_KEYS, total_steps))
     if moments:
         want["accumulate_moment2"] = total_steps
     if launches != want:
@@ -1971,70 +2173,6 @@ def log_stage(label: str, sk: dict) -> None:
         + "; ".join(f"{k} {n:g} {ms:.3f}" for k, n, ms in sk["top"]))
 
 
-def shade_taps(ren) -> list:
-    """The texel row indices of every tap one eager shade of ``ren``'s
-    next queue at pose 0 makes, in order (``render._tap_rows`` recorded:
-    one row gather a tap)."""
-    cfg, sc = ren.cfg, ren.scene
-    ren.step(camera_for_pose(0), 1)
-    rays = tr.merge_queue(cfg, ren.state, camera_for_pose(0).to_device(
-        cfg, DEV))
-    t, ident, is_tri = tr._intersect_scene(rays["origin"], rays["direction"],
-                                           sc, ren.tables)
-    taps, tap_rows = [], tr._tap_rows
-
-    def record(table, idx):
-        if table is sc.tex_data:
-            taps.append(idx)
-        return tap_rows(table, idx)
-    tr._tap_rows = record
-    try:
-        tr._shade(cfg, sc, ren.sky_params, ren.sun_dir, rays, t, ident,
-                  is_tri, ren.state.frame)
-    finally:
-        tr._tap_rows = tap_rows
-    return taps
-
-
-def tap_ab(ren, reps: int = 20) -> dict:
-    """One texture tap of a full queue, the first of :func:`shade_taps`
-    (an albedo tap of the step), as ``tex_data[idx]`` against
-    ``torch.index_select(tex_data, 0, idx)``, each on int64 and on int32
-    indices: equal bit for bit, each timed with the L2 evicted before
-    every call (the step's earlier stages leave it cold) and back to
-    back; the bound is the rows read and written once (16 B each) and
-    the 8-byte indices."""
-    taps = shade_taps(ren)
-    table = ren.scene.tex_data
-    idx, idx32 = taps[0].to(torch.int64), taps[0].to(torch.int32)
-    a = table[idx]
-    if not all(same_bits(g, a) for g in (
-            torch.index_select(table, 0, idx), table[idx32],
-            torch.index_select(table, 0, idx32))):
-        raise AssertionError("the row gathers differ")
-    out = dict(taps_a_shade=len(taps), rows=int(idx.numel()),
-               distinct_rows=int(torch.unique(idx).numel()))
-    for name, fn in (("index", lambda: table[idx]),
-                     ("index_select",
-                      lambda: torch.index_select(table, 0, idx)),
-                     ("index_i32", lambda: table[idx32]),
-                     ("index_select_i32",
-                      lambda: torch.index_select(table, 0, idx32))):
-        out[f"{name}_ms"] = cuda_ms(fn, reps, cold=True)
-        out[f"{name}_warm_ms"] = cuda_ms(fn, reps)
-    out["bound_ms"], out["bound_by"] = bound_ms(
-        idx.numel() * (8 + 2 * 16), 0)
-    log(f"texture tap A/B ({out['rows']} rows, {out['distinct_rows']} "
-        f"distinct, {out['taps_a_shade']} taps a shade), L2 evicted (back "
-        "to back): " + ", ".join(
-            f"{name} {out[name + '_ms']:.4f} ({out[name + '_warm_ms']:.4f})"
-            for name in ("index", "index_select", "index_i32",
-                         "index_select_i32"))
-        + f" ms; bound {out['bound_ms']:.4f} ms ({out['bound_by']}); bit "
-        "for bit equal")
-    return out
-
-
 def card_vs_cpu(scene, cfg: RenderConfig, what: str,
                 steps: int = 6) -> float:
     """A 32x32 render of ``scene`` under ``cfg`` (16,384 rays, pose 0) on
@@ -2091,9 +2229,11 @@ def textures_path(cfg: RenderConfig, n_tris: int = 1_048_576,
     3 eager and captured (bit for bit the eager step first) under
     "bilinear" at ``poses_run``, eager at pose 0 under "nearest",
     "trilinear" and with the wave kernel, shade's split with its row
-    gathers; the tap A/B; ``image()`` with the denoiser; the kernels on
-    its queues and its step's accumulation; a 32x32 render on the card
-    against the CPU (``small`` sizes its scene)."""
+    gathers; the textured shade kernels on the bilinear and the nearest
+    Renderer's queue (:func:`shade_at_step`); ``image()`` with the
+    denoiser; the kernels on its queues and its step's accumulation; a
+    32x32 render on the card against the CPU (``small`` sizes its
+    scene)."""
     texture_px = texture_px or {}
     t0 = time.perf_counter()
     mesh = benchmark_scene(n_tris)
@@ -2145,7 +2285,7 @@ def textures_path(cfg: RenderConfig, n_tris: int = 1_048_576,
         cfg_e, fuse_step_chains="auto"), poses_run, chain=False,
         label="tex-")
     compare_captured(poses, cap["poses"])
-    filters = {}
+    filters, at_step = {}, {}
     for filt in ("nearest", "trilinear"):
         ren_f = tr.Renderer(sd, dataclasses.replace(cfg_e,
                                                     texture_filter=filt),
@@ -2154,13 +2294,15 @@ def textures_path(cfg: RenderConfig, n_tris: int = 1_048_576,
         split[filt] = stage_kernels(
             TRACE_DIR / f"trace_tex-{filt}-mono_pose0.json", 2)
         log_stage(f"textures {filt}", split[filt])
+        if filt == "nearest":
+            at_step[filt] = shade_at_step(ren_f)
         del ren_f
     ren_w = tr.Renderer(sd, dataclasses.replace(cfg_e,
                                                 packet_kernel_mode="wave"),
                         tables=ren.tables)
     poses_w, launches_w = phase3(ren_w, (0,), "tex-")
     del ren_w
-    tap = tap_ab(ren)
+    at_step["bilinear"] = shade_at_step(ren)
     ren_d = tr.Renderer(sd, dataclasses.replace(cfg_e, denoise="on"),
                         tables=ren.tables)
     ren_d.step(camera_for_pose(0), 8)
@@ -2184,7 +2326,8 @@ def textures_path(cfg: RenderConfig, n_tris: int = 1_048_576,
                 tri_attr_mb=attr_mb, renderer_peak_mb=peak_mb,
                 memory_before_mb=before_mb, flags=flags, poses=poses,
                 poses_captured=cap["poses"], filters=filters,
-                poses_wave=poses_w, shade=split, tap=tap, image_ms=image_ms,
+                poses_wave=poses_w, shade=split, at_step=at_step,
+                image_ms=image_ms,
                 launches=dict(eager=launches, captured=cap["launches"],
                               wave=launches_w),
                 queues=queues, card_vs_cpu=mad)
@@ -3323,7 +3466,28 @@ def main() -> int:
          "kernel_normals": {k: shd["kernel_normals"][k]
                             for k in ("rays", "ms", "kernel_ms", "plain_ms",
                                       "bound_ms", "bound_by", "library_ms",
-                                      "mismatches")}}]}
+                                      "mismatches")}},
+        {"name": "shade_textured", "route": "cuda",
+         "source": "tyrant_tpu_torch/csrc/shade_textured.cu",
+         "replaces": "tyrant_tpu/render.py:1746",
+         # the textures path: its shade kernel's launches (the surface
+         # kernel's are counted apart), captured with the replays, eager
+         # and with the wave kernel
+         "launches": tx["launches"]["captured"]["shade_textured"],
+         "eager_launches": tx["launches"]["eager"]["shade_textured"],
+         "wave_launches": tx["launches"]["wave"]["shade_textured"],
+         "surface_launches": path_launches(tx, "shade_surface", "eager",
+                                           "captured", "wave"),
+         "registers": {k: regs.get(k) for k in ("surface_kernel",
+                                                "shade_textured_kernel")},
+         # the queue under "bilinear", the cell's filter; then "nearest"
+         **{k: tx["at_step"]["bilinear"][k] for k in TEXTURED_AT_STEP},
+         "nearest": {k: tx["at_step"]["nearest"][k]
+                     for k in TEXTURED_AT_STEP},
+         # both queues' slots off, all fields
+         "mismatches": sum(sum(q["mismatches"].values())
+                           for q in tx["at_step"].values()),
+         "rays_checked": sum(q["rays"] for q in tx["at_step"].values())}]}
     log(json.dumps({"poses": poses, "poses_wave": poses_w,
                     "queues": {q: sl[q] for q in queues + ("accumulate",)},
                     "phase2": acc,

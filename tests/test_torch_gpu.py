@@ -514,8 +514,9 @@ def test_textures_path_at_small_size(cuda):
     step captured bit for bit the eager one, phase 3 under every filter
     and the wave kernel, both traversal kernels against the plain walk on
     its extend, shadow and AOV queues, the accumulation on its step's
-    queue, the two row gathers of the tap A/B bit for bit, image() with
-    the denoiser, the card against the CPU."""
+    queue, the textured shade kernels against the plain body under
+    "bilinear" and "nearest" (one launch of each kernel a step), image()
+    with the denoiser, the card against the CPU."""
     cfg = small_config(width=96, height=64, num_rays=8192)
     tx = chip_smoke.textures_path(cfg, **SMALL_TEX)
     for q in ("extend", "connect", "aov"):
@@ -525,7 +526,13 @@ def test_textures_path_at_small_size(cuda):
     assert tx["launches"]["eager"]["traverse"] == 2 * 14
     assert tx["launches"]["captured"]["traverse"] == 2 * 14
     assert tx["launches"]["wave"]["traverse_wave"] == 2 * 14
-    assert tx["tap"]["taps_a_shade"] == 12  # 4 bilinear taps, 3 maps
+    for filt in ("bilinear", "nearest"):
+        at = tx["at_step"][filt]
+        assert not any(at["mismatches"].values()), at["mismatches"]
+        assert at["filter"] == filt and at["taps"] > 0
+    for run in ("eager", "captured", "wave"):
+        assert tx["launches"][run]["shade_surface"] == 14
+        assert tx["launches"][run]["shade_textured"] == 14
     assert tx["card_vs_cpu"] < 0.03
 
 

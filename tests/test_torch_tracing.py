@@ -9,7 +9,8 @@ and its counters of map taps, pass-throughs and GGX hits against a
 recount.  The last three tests (marked ``gpu``) hold the markers and
 counters of a captured step on the card against CUDA events and the
 step's state, the tracer's kernels against their CPU versions, and a
-captured textured step's counters against a recount.  This file imports
+captured textured step's counters (the textured shade kernels') against
+a recount from the plain shade body.  This file imports
 no JAX:
 
     python -m pytest --noconftest -m gpu tests/test_torch_tracing.py
@@ -193,9 +194,10 @@ def textured():
 
 def _textured_recount(ren, st, cam, monkeypatch) -> dict:
     """The textured counters recounted from one step's stages run on
-    their own from state ``st`` (the tracer off): the hit triangles whose
-    tri_attr row names an albedo map, and the pass-throughs and GGX hits
-    that the plain shade body handed its bounce."""
+    their own from state ``st`` (the tracer off), shaded by the plain body
+    on any device: the hit triangles whose tri_attr row names an albedo
+    map, and the pass-throughs and GGX hits that the plain shade body
+    handed its bounce."""
     cfg = ren.cfg
     seen = {}
     bounce = tr._shade_bounce
@@ -207,8 +209,8 @@ def _textured_recount(ren, st, cam, monkeypatch) -> dict:
     rays = tr.merge_queue(cfg, st, cam)
     t, ident, is_tri = tr._intersect_scene(
         rays["origin"], rays["direction"], ren.scene, ren.tables)
-    tr._shade(cfg, ren.scene, ren.sky_params, ren.sun_dir, rays, t, ident,
-              is_tri, tr._salted_frame(cfg, st.frame))
+    tr._shade_plain(cfg, ren.scene, ren.sky_params, ren.sun_dir, rays, t,
+                    ident, is_tri, tr._salted_frame(cfg, st.frame))
     monkeypatch.undo()
     tex = ren.scene.tri_attr[torch.clamp(ident, min=0).long(), 15] >= 0
     return {"tex_hits": int((is_tri & (t < VERY_FAR) & tex).sum()),

@@ -13,7 +13,9 @@ _COUNTERS = {"traverse": ("traverse", "launches"),
              "accumulate": ("accum", "launches"),
              "accumulate_moment2": ("accum", "launches_moment2"),
              "stream": ("stream", "launches"),
-             "shade": ("shade", "launches")}
+             "shade": ("shade", "launches"),
+             "shade_surface": ("shade", "launches_surface"),
+             "shade_textured": ("shade", "launches_textured")}
 
 
 def _module(name: str):

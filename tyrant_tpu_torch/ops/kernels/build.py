@@ -170,6 +170,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.tyrant_stream.restype = i
     lib.tyrant_shade.argtypes = [p] * 29
     lib.tyrant_shade.restype = i
+    lib.tyrant_shade_surface.argtypes = [p] * 17
+    lib.tyrant_shade_surface.restype = i
+    lib.tyrant_shade_textured.argtypes = [p] * 14 + [i] + [p] * 13
+    lib.tyrant_shade_textured.restype = i
     lib.tyrant_trace_marker.argtypes = [i, p, p, i, i, i, i, p]
     lib.tyrant_trace_marker.restype = i
     lib.tyrant_trace_count.argtypes = [p, p, p, p, i, i, p]

@@ -529,7 +529,7 @@ def _env_pdf_nearest(scene: SceneData, d):
 def _tap_rows(table, idx):
     """Rows ``idx`` [N] (int32) of ``table``: one row gather.  On the
     H100 ``index_select`` and ``table[idx]`` take the same time, on int32
-    or int64 indices (chip_smoke.tap_ab)."""
+    or int64 indices."""
     return torch.index_select(table, 0, idx)
 
 
@@ -1643,44 +1643,78 @@ def _sobol_draws(cfg: RenderConfig, rays, row_offset: int = 0):
             lambda purpose: sobol.sample_2d(s_idx, key(purpose)))
 
 
-# What the shade kernel leaves to _shade_plain, in one place: a shade call
+# What the shade kernels leave to _shade_plain, in one place: a shade call
 # goes to the plain body where a SceneData attribute named in
 # SHADE_PLAIN_SCENE is truthy, or a RenderConfig field of
-# SHADE_KERNEL_CONFIG holds another value than the kernel's.
+# SHADE_KERNEL_CONFIG holds another value than the kernels'.  Where a flag
+# of SHADE_TEXTURED_SCENE is truthy, the textured variant
+# (csrc/shade_textured.cu) takes the call under a texture_filter of
+# SHADE_TEXTURED_FILTERS, the plain body under any other.
 SHADE_PLAIN_SCENE = (
-    "has_envmap", "has_albedo_tex", "has_textures", "has_normal_maps",
-    "has_rough_maps", "has_alpha_tex", "has_blend", "has_metal_maps",
-    "smooth_normals", "has_ggx", "has_rrefr", "has_var_ior", "n_tri_lights",
-    "n_delta_lights")
+    "has_envmap", "smooth_normals", "has_rrefr", "has_var_ior",
+    "n_tri_lights", "n_delta_lights")
+SHADE_TEXTURED_SCENE = (
+    "has_albedo_tex", "has_textures", "has_normal_maps", "has_rough_maps",
+    "has_alpha_tex", "has_blend", "has_metal_maps", "has_ggx")
+SHADE_TEXTURED_FILTERS = kshade.TEXTURE_FILTERS
 SHADE_KERNEL_CONFIG = {"sampler": "xorshift", "mis": "off", "fog": "off",
                        "dispersion": 0.0}
 
 
+def _textured_shade(scene: SceneData) -> bool:
+    """Whether a kernel shade call takes the textured variant: a flag of
+    SHADE_TEXTURED_SCENE is on."""
+    return any(getattr(scene, k) for k in SHADE_TEXTURED_SCENE)
+
+
 def _fused_shade(cfg: RenderConfig, scene: SceneData, device) -> bool:
-    """Whether the shade kernel (``ops/kernels/shade.py``) takes a shade
+    """Whether a shade kernel (``ops/kernels/shade.py``) takes a shade
     call on ``device``: CUDA, every gate of SHADE_PLAIN_SCENE and
-    SHADE_KERNEL_CONFIG off, and one light sphere or none (several are a
-    light pick the kernel leaves out) among at least one sphere."""
+    SHADE_KERNEL_CONFIG off, one light sphere or none (several are a
+    light pick the kernels leave out) among at least one sphere, and
+    with a flag of SHADE_TEXTURED_SCENE on, a texture_filter of
+    SHADE_TEXTURED_FILTERS."""
     return (torch.device(device).type == "cuda"
             and all(getattr(cfg, k) == v
                     for k, v in SHADE_KERNEL_CONFIG.items())
             and not any(getattr(scene, k) for k in SHADE_PLAIN_SCENE)
-            and scene.n_spheres > 0 and len(scene.light_indices) <= 1)
+            and scene.n_spheres > 0 and len(scene.light_indices) <= 1
+            and (cfg.texture_filter in SHADE_TEXTURED_FILTERS
+                 or not _textured_shade(scene)))
 
 
 def _shade(cfg: RenderConfig, scene: SceneData, sky_params: skymod.SkyParams,
            sun_dir, rays, t, ident, is_tri, frame, tri_normal=None,
            row_offset: int = 0):
     """Shade every queue slot.  Returns (color, survive, next_rays,
-    shadow).  One launch of the shade kernel where :func:`_fused_shade`
-    admits the call (it counts ``shade_fused``, the slots it shaded, with
-    the tracer on), else :func:`_shade_plain`, its plain version."""
+    shadow).  Where :func:`_fused_shade` admits the call, one launch of
+    the base kernel, or on the textured feature set two of the textured
+    variant, the surface fetch and the shading (with the tracer on, the
+    ``fetch_end`` marker between them, and the counters ``tex_hits``,
+    ``alpha_pass`` and ``ggx_hits`` from the surface record); either
+    counts ``shade_fused``, the slots it shaded.  Else
+    :func:`_shade_plain`, their plain version."""
     if not _fused_shade(cfg, scene, t.device):
         return _shade_plain(cfg, scene, sky_params, sun_dir, rays, t, ident,
                             is_tri, frame, tri_normal, row_offset)
-    color, survive, next_rays, shadow = kshade.shade(
-        cfg, scene, sky_params, sun_dir, rays, t, ident, is_tri, frame,
-        tri_normal if scene.tri_default_mat else None, row_offset)
+    tri_normal = tri_normal if scene.tri_default_mat else None
+    if _textured_shade(scene):
+        record = kshade.surface(cfg, scene, rays, t, ident, is_tri, frame,
+                                tri_normal, row_offset)
+        if _prof.ON:
+            _prof.mark(t.device, _prof.FETCH_END)
+            word = record.view(torch.int32)[:, 7]  # a view: no launch
+            _prof.defer("tex_hits", lambda: (
+                (word & kshade.TEX_HIT_BIT) != 0).sum())
+            _prof.defer("alpha_pass", lambda: ((word & 0xFF) == PASS).sum())
+            _prof.defer("ggx_hits", lambda: ((word & 0xFF) == GGX).sum())
+        color, survive, next_rays, shadow = kshade.shade_textured(
+            cfg, scene, sky_params, sun_dir, rays, t, ident, is_tri, frame,
+            record, row_offset)
+    else:
+        color, survive, next_rays, shadow = kshade.shade(
+            cfg, scene, sky_params, sun_dir, rays, t, ident, is_tri, frame,
+            tri_normal, row_offset)
     if _prof.ON:
         _prof.defer("shade_fused", lambda: cfg.num_rays)
         _prof.defer("roulette_kills", lambda: (
