@@ -884,9 +884,9 @@ def shade_at_step(ren, steps: int = 3, reps: int = 20) -> dict:
     """The shade kernels on the queue of ``ren``'s next step at pose 0,
     after ``steps`` more steps (so the queue holds carried rays): the
     variant ``ren``'s configuration takes (the textured one on a scene
-    with a flag of ``render.SHADE_TEXTURED_SCENE``; else the base kernel
-    with the traversal's hit normals under ``use_kernel_normals`` on a
-    default-material scene, or with the tri_shade rows), through
+    with a flag of ``kshade.GATE_BITS``; else the base kernel with the
+    traversal's hit normals where ``render.kernel_normals`` holds, or with
+    the tri_shade rows, as ``kshade.variant`` picks), through
     ``ops/kernels/shade``, against ``render._shade_plain`` on the same
     tensors, with no mismatch of :func:`shade_mismatches` (the textured
     variant's MISS_UNREAD compared on the hits: a miss's are never read).
@@ -902,14 +902,15 @@ def shade_at_step(ren, steps: int = 3, reps: int = 20) -> dict:
     ren.step(cam, steps)
     st = ren.state
     rays = tr.merge_queue(cfg, st, cam.to_device(cfg, DEV))
-    normals = cfg.use_kernel_normals == "on" and sc.tri_default_mat
+    normals = tr.kernel_normals(cfg, sc)
     t, ident, is_tri, *tn = tr._intersect_scene(
         rays["origin"], rays["direction"], sc, ren.tables, normals=normals)
     args = (cfg, sc, ren.sky_params, ren.sun_dir, rays, t, ident, is_tri,
             tr._salted_frame(cfg, st.frame), tn[0] if normals else None)
-    if not tr._fused_shade(cfg, sc, DEV):
+    kind = kshade.variant(cfg, sc, DEV)
+    if kind is None:
         raise AssertionError("the shade kernel does not take this queue")
-    if tr._textured_shade(sc):
+    if kind == kshade.TEXTURED:
         return textured_at_step(ren, args, reps)
     got, n_eq, n_el = shade_mismatches(kshade.shade(*args),
                                        tr._shade_plain(*args))
@@ -1239,7 +1240,7 @@ def phase3(ren, poses_run=(0, 1, 2), label: str = "",
     i's camera.  Under ``track_variance`` or adaptive sampling the
     accumulation is the moment2 mode's launch."""
     cfg = ren.cfg
-    wave = tr._pick_wave(cfg, "extend")
+    wave = tr._pick_wave(cfg)
     tag = label + ("wave" if wave else "mono") \
         + ("-captured" if ren.captured else "")
     TRACE_DIR.mkdir(parents=True, exist_ok=True)
@@ -1328,8 +1329,8 @@ def phase3(ren, poses_run=(0, 1, 2), label: str = "",
             + "; device ops a step " + " ".join(f"{k} {v:g}"
                                                 for k, v in ops.items())))
     moments = tr._moments(cfg)
-    fused = tr._fused_shade(cfg, ren.scene, ren.device)
-    textured = fused and tr._textured_shade(ren.scene)
+    kind = kshade.variant(cfg, ren.scene, ren.device)
+    textured = kind == kshade.TEXTURED
     keys = LAUNCH_KEYS + (MOMENT2_KEYS if moments else ()) \
         + (TEXTURED_KEYS if textured else ())
     launches = read_launches(ren, keys=keys)
@@ -1343,7 +1344,7 @@ def phase3(ren, poses_run=(0, 1, 2), label: str = "",
             "accumulate": 0 if moments else total_steps, "stream": 0,
             # the base shade kernel, the textured variant's two kernels,
             # or the plain body
-            "shade": total_steps if fused and not textured else 0}
+            "shade": total_steps if kind == kshade.BASE else 0}
     if textured:
         want.update(dict.fromkeys(TEXTURED_KEYS, total_steps))
     if moments:
@@ -1560,7 +1561,7 @@ def display_path(scene, tables, cfg: RenderConfig, steps: int = 8) -> dict:
     aov_launches = launches["traverse_wave"] - stepped["traverse_wave"]
     log(f"display path launches: {steps} steps {stepped}, image() "
         f"{aov_launches} wave launch(es)")
-    shade = steps if tr._fused_shade(cfg, scene, DEV) else 0
+    shade = steps if kshade.variant(cfg, scene, DEV) else 0
     if stepped != {"traverse": 0, "traverse_wave": 2 * steps,
                    "accumulate": steps, "stream": 0, "shade": shade} \
             or aov_launches != 1 \

@@ -47,13 +47,30 @@ def _cam(cls):
     return cam
 
 
+# the JAX package's TPU kernel selectors, each at a value off CFG's
+TPU_SELECTORS = {"use_packet_kernel": "off", "use_accum_kernel": "off",
+                 "adaptive_connect": "auto", "adaptive_connect_frac": 0.2}
+
+
 def test_selectors_are_ported_fields():
-    for name in ("fuse_step_chains", "use_kernel_normals"):
-        assert name in tr._PORTED_FIELDS
-        assert name not in tr._IGNORED_SELECTORS
-    assert tr._IGNORED_SELECTORS == {"use_packet_kernel", "use_accum_kernel",
-                                     "adaptive_connect",
-                                     "adaptive_connect_frac"}
+    """The port reads its own selectors (test_cpu_runs_eager_under_every_value
+    and the kernel-normals tests) and accepts the JAX package's four TPU
+    selectors without effect: two CPU steps under each of those, set off
+    its default, leave the default config's state bit for bit."""
+    scene = Scene.load(None)
+
+    def state(cfg):
+        r = tr.Renderer(scene, cfg, device="cpu")
+        r.step(_cam(Camera), 2)
+        return r.state
+    want = state(CFG)
+    assert float(want.accum[:, 3].sum()) > 0
+    for name, value in TPU_SELECTORS.items():
+        assert getattr(CFG, name) != value, name
+        got = state(dataclasses.replace(CFG, **{name: value}))
+        for f in dataclasses.fields(want):
+            assert torch.equal(getattr(got, f.name),
+                               getattr(want, f.name)), (name, f.name)
 
 
 @pytest.mark.parametrize("fuse", ["auto", "on", "off"])
@@ -186,5 +203,4 @@ def test_step_after_hoisting_matches_jax_step():
 
 
 def test_renderer_default_config_is_ported():
-    tr.check_config(RenderConfig())
     assert RenderConfig().fuse_step_chains == "auto"

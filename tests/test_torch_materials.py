@@ -381,7 +381,7 @@ def test_dispersion_config_validation():
         small_config(dispersion=-0.1)
     with pytest.raises(ValueError):
         small_config(dispersion=0.9)
-    tr.check_config(small_config(dispersion=0.1))
+    assert small_config(dispersion=0.1).dispersion == 0.1
 
 
 def test_tiny_dispersion_preserves_mean_radiance():

@@ -1,17 +1,17 @@
-"""Which shade calls the shade kernels take (``render._fused_shade``,
-``render._textured_shade``): the base kernel on the base feature set on a
-CUDA device; the textured variant where a flag of
-``render.SHADE_TEXTURED_SCENE`` is on, under a texture filter of
-``render.SHADE_TEXTURED_FILTERS``; nothing else.  Each gate of the plain
-body that the kernels leave out, switched on alone or beside the textured
+"""Which shade calls the shade kernels take (``kshade.variant``, from
+the gate table of ``ops/kernels/shade.py``): the base kernel on the base
+feature set on a CUDA device; the textured variant where a flag of
+``kshade.GATE_BITS`` is on, under a texture filter of
+``kshade.TEXTURE_FILTERS``; nothing else.  Each gate of the plain body
+that the kernels leave out, switched on alone or beside the textured
 flags, sends the call to ``render._shade_plain``, and so do a CPU device
 and a textured scene under "trilinear"; the tracer's ``shade_fused``
 counter counts 0 on the CPU path, and the textured variant's counters
-come from its surface record.  The cases come from the predicate's own
-gate lists (``render.SHADE_PLAIN_SCENE``, ``render.SHADE_TEXTURED_SCENE``
-and ``render.SHADE_KERNEL_CONFIG``), and every has_* or n_* flag of
-SceneData must be among them.  The predicate reads only host flags, so
-these run without a card."""
+come from its surface record (``kshade.run``).  The cases come from the
+gate table itself (``kshade.PLAIN_SCENE``, ``kshade.GATE_BITS`` and
+``kshade.KERNEL_CONFIG``), and every has_* or n_* flag of SceneData must
+be among them.  The predicate reads only host flags, so these run without
+a card."""
 
 import dataclasses
 
@@ -30,11 +30,10 @@ from tyrant_tpu_torch.utils import profiling
 CFG = small_config(width=16, height=16, num_rays=1 << 10)
 CUDA = torch.device("cuda")
 
-# a value that switches each of render.SHADE_KERNEL_CONFIG's fields on
+# a value that switches each of kshade.KERNEL_CONFIG's fields on
 CONFIG_ON = {"fog": "on", "mis": "on", "sampler": "sobol",
              "dispersion": 0.02}
-# the SceneData fields behind the properties of render.SHADE_PLAIN_SCENE
-# and render.SHADE_TEXTURED_SCENE
+# the SceneData fields behind the properties among the gates
 PROPERTY_ON = {"has_envmap": dict(env_meta=(4, 8)),
                "has_textures": dict(has_albedo_tex=True)}
 # has_* and n_* attributes of SceneData that are no gate of the plain body:
@@ -43,8 +42,8 @@ NOT_GATES = {"n_spheres"}
 
 
 def _scene_on(scene, name: str):
-    """``scene`` with the gate ``name`` of render.SHADE_PLAIN_SCENE or
-    render.SHADE_TEXTURED_SCENE on."""
+    """``scene`` with the gate ``name`` of kshade.PLAIN_SCENE or
+    TEXTURED_FLAGS on."""
     if name in PROPERTY_ON:
         return dataclasses.replace(scene, **PROPERTY_ON[name])
     return dataclasses.replace(scene, **{name: type(getattr(scene, name))(1)})
@@ -57,11 +56,14 @@ def scene():
                                 builder="numpy").to_device("cpu")
 
 
+# the textured flags, with has_textures, the property alias of
+# has_albedo_tex
+TEXTURED_FLAGS = sorted(set(kshade.GATE_BITS) | {"has_textures"})
 # the textured flags alone, and all of them together
-TEXTURED_SETS = sorted(tr.SHADE_TEXTURED_SCENE) + ["all"]
+TEXTURED_SETS = TEXTURED_FLAGS + ["all"]
 # what sends a textured call to the plain body: a filter the kernels leave
-# out, a gate of render.SHADE_PLAIN_SCENE or SHADE_KERNEL_CONFIG, a second
-# light sphere
+# out, a gate of kshade.PLAIN_SCENE or KERNEL_CONFIG, a second light
+# sphere
 PLAIN_BESIDE = {"trilinear": dict(cfg=dict(texture_filter="trilinear")),
                 "smooth_normals": dict(scene=dict(smooth_normals=True)),
                 "fog": dict(cfg=dict(fog="on")), "mis": dict(cfg=dict(mis="on")),
@@ -72,7 +74,7 @@ PLAIN_BESIDE = {"trilinear": dict(cfg=dict(texture_filter="trilinear")),
 
 def _textured(scene, gates: str):
     """``scene`` with the textured flag ``gates``, or every one ("all")."""
-    names = tr.SHADE_TEXTURED_SCENE if gates == "all" else (gates,)
+    names = TEXTURED_FLAGS if gates == "all" else (gates,)
     for name in names:
         scene = _scene_on(scene, name)
     return scene
@@ -80,46 +82,46 @@ def _textured(scene, gates: str):
 
 def test_base_set_on_cuda_takes_the_kernel(scene):
     assert scene.n_spheres == 7 and len(scene.light_indices) == 1
-    assert tr._fused_shade(CFG, scene, CUDA)
-    assert tr._fused_shade(CFG, scene, "cuda:0")
-    assert not tr._textured_shade(scene)
+    assert kshade.variant(CFG, scene, CUDA) == kshade.BASE
+    assert kshade.variant(CFG, scene, "cuda:0") == kshade.BASE
     normals = dataclasses.replace(CFG, use_kernel_normals="on")
-    assert scene.tri_default_mat and tr._fused_shade(normals, scene, CUDA)
+    assert tr.kernel_normals(normals, scene)
+    assert kshade.variant(normals, scene, CUDA) == kshade.BASE
     trilinear = dataclasses.replace(CFG, texture_filter="trilinear")
-    assert tr._fused_shade(trilinear, scene, CUDA)
+    assert kshade.variant(trilinear, scene, CUDA) == kshade.BASE
 
 
 def test_cpu_takes_the_plain_body(scene):
-    assert not tr._fused_shade(CFG, scene, torch.device("cpu"))
-    assert not tr._fused_shade(CFG, _textured(scene, "all"),
-                               torch.device("cpu"))
+    assert kshade.variant(CFG, scene, torch.device("cpu")) is None
+    assert kshade.variant(CFG, _textured(scene, "all"),
+                          torch.device("cpu")) is None
 
 
-@pytest.mark.parametrize("gate", sorted(tr.SHADE_KERNEL_CONFIG))
+@pytest.mark.parametrize("gate", sorted(kshade.KERNEL_CONFIG))
 def test_config_gate_takes_the_plain_body(scene, gate):
     cfg = dataclasses.replace(CFG, **{gate: CONFIG_ON[gate]})
-    assert not tr._fused_shade(cfg, scene, CUDA)
+    assert kshade.variant(cfg, scene, CUDA) is None
 
 
-@pytest.mark.parametrize("gate", sorted(tr.SHADE_PLAIN_SCENE
-                                        + tr.SHADE_TEXTURED_SCENE))
+@pytest.mark.parametrize("gate", sorted(kshade.PLAIN_SCENE
+                                        + tuple(TEXTURED_FLAGS)))
 def test_scene_gate_takes_the_plain_body(scene, gate):
-    """A gate of SHADE_PLAIN_SCENE alone; a flag of SHADE_TEXTURED_SCENE
-    under the one filter the textured variant leaves out."""
-    cfg = CFG if gate in tr.SHADE_PLAIN_SCENE \
+    """A gate of PLAIN_SCENE alone; a textured flag under the one filter
+    the textured variant leaves out."""
+    cfg = CFG if gate in kshade.PLAIN_SCENE \
         else dataclasses.replace(CFG, texture_filter="trilinear")
     sd = _scene_on(scene, gate)
-    assert getattr(sd, gate) and not tr._fused_shade(cfg, sd, CUDA)
+    assert getattr(sd, gate) and kshade.variant(cfg, sd, CUDA) is None
 
 
-@pytest.mark.parametrize("texture_filter", tr.SHADE_TEXTURED_FILTERS)
+@pytest.mark.parametrize("texture_filter", kshade.TEXTURE_FILTERS)
 @pytest.mark.parametrize("gates", TEXTURED_SETS)
 def test_textured_gate_takes_the_textured_variant(scene, gates,
                                                   texture_filter):
     cfg = dataclasses.replace(CFG, texture_filter=texture_filter)
     sd = _textured(scene, gates)
-    assert tr._fused_shade(cfg, sd, CUDA) and tr._textured_shade(sd)
-    assert not tr._textured_shade(scene)
+    assert kshade.variant(cfg, sd, CUDA) == kshade.TEXTURED
+    assert kshade.variant(cfg, scene, CUDA) == kshade.BASE
 
 
 @pytest.mark.parametrize("beside", sorted(PLAIN_BESIDE))
@@ -129,24 +131,23 @@ def test_textured_gate_beside_a_plain_gate_takes_the_plain_body(
     over = PLAIN_BESIDE[beside]
     cfg = dataclasses.replace(CFG, **over.get("cfg", {}))
     sd = dataclasses.replace(_textured(scene, gates), **over.get("scene", {}))
-    assert tr._textured_shade(sd) and not tr._fused_shade(cfg, sd, CUDA)
+    assert any(getattr(sd, k) for k in kshade.GATE_BITS)
+    assert kshade.variant(cfg, sd, CUDA) is None
 
 
 def test_every_gate_is_listed():
     """Each has_* or n_* attribute of SceneData is a gate of
-    render.SHADE_PLAIN_SCENE or render.SHADE_TEXTURED_SCENE (not both) or
-    named in NOT_GATES, each textured flag but the ``has_textures`` alias
-    has its bit in the kernel's gates, and each config gate has a value
-    here that switches it on: a flag added to the plain body without a
-    place in a gate list fails here."""
+    kshade.PLAIN_SCENE or a textured flag (not both) or named in
+    NOT_GATES, and each config gate has a value here that switches it on:
+    a flag added to the plain body without a place in the gate table
+    fails here."""
     flags = {k for k in dir(SceneData) if k.startswith(("has_", "n_"))} \
         | {f.name for f in dataclasses.fields(SceneData)
            if f.name.startswith(("has_", "n_"))}
-    plain, textured = set(tr.SHADE_PLAIN_SCENE), set(tr.SHADE_TEXTURED_SCENE)
+    plain, textured = set(kshade.PLAIN_SCENE), set(TEXTURED_FLAGS)
     assert not plain & textured
     assert flags - NOT_GATES <= plain | textured
-    assert textured - {"has_textures"} == set(kshade.GATE_BITS)
-    assert set(CONFIG_ON) == set(tr.SHADE_KERNEL_CONFIG)
+    assert set(CONFIG_ON) == set(kshade.KERNEL_CONFIG)
     assert set(PLAIN_BESIDE) >= {"trilinear", "smooth_normals", "fog", "mis",
                                  "sobol", "envmap", "second_light"}
 
@@ -165,7 +166,7 @@ def test_light_pick_and_no_spheres_take_the_plain_body(scene, case):
                                  sphere_radius=torch.zeros(0),
                                  sphere_emission=empty, light_index=-1)
         assert sd.n_spheres == 0
-    assert not tr._fused_shade(cfg, sd, CUDA)
+    assert kshade.variant(cfg, sd, CUDA) is None
 
 
 def test_shade_fused_counts_zero_on_the_cpu(scene):
@@ -225,7 +226,7 @@ class _Launches:
 
 @pytest.mark.parametrize("variant", ["base", "textured"])
 def test_shade_sends_the_call_to_its_variant(scene, variant, monkeypatch):
-    """``render._shade`` where the predicate admits the call: one base
+    """``render._shade`` where the predicate picks a kernel: one base
     launch, or the textured surface fetch then its shading; with the
     tracer on, the ``fetch_end`` marker between the textured launches and
     ``tex_hits``, ``alpha_pass`` and ``ggx_hits`` read off the surface
@@ -238,7 +239,8 @@ def test_shade_sends_the_call_to_its_variant(scene, variant, monkeypatch):
     fake = _Launches(words)
     for name in ("surface", "shade_textured", "shade"):
         monkeypatch.setattr(kshade, name, getattr(fake, name))
-    monkeypatch.setattr(tr, "_fused_shade", lambda *a: True)
+    monkeypatch.setattr(kshade, "variant", lambda *a: (
+        kshade.TEXTURED if variant == "textured" else kshade.BASE))
     monkeypatch.setattr(profiling, "mark",
                         lambda dev, k: fake.calls.append(profiling.COLUMNS[k]))
     sd = _textured(scene, "all") if variant == "textured" else scene

@@ -154,7 +154,7 @@ def test_shade_kernel_matches_plain(cuda, normals, row_offset):
     sd = _scene(normals, cuda)
     cfg = small_config(width=32, height=1080, num_rays=8192, seed=1234567891,
                        use_kernel_normals="on" if normals else "off")
-    assert tr._fused_shade(cfg, sd, cuda)
+    assert kshade.variant(cfg, sd, cuda) == kshade.BASE
     tables = tr.PacketTables(sd.bvh)
     sky = tsky.SkyParams(cfg.sky)
     sun = tsky.sun_direction_from_position(SUN, cuda)
@@ -206,7 +206,7 @@ def test_captured_steps_fused_against_plain(cuda, normals, monkeypatch):
     for step in range(4):
         fused.step(cam, 1)
         with monkeypatch.context() as m:
-            m.setattr(tr, "_fused_shade", lambda *a: False)
+            m.setattr(kshade, "variant", lambda *a: None)
             plain.step(cam, 1)
         torch.cuda.synchronize()
         a, b = fused.state, plain.state

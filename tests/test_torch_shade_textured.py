@@ -86,7 +86,7 @@ def test_textured_kernels_match_plain(cuda, scene, texture_filter,
     sd = scene.to_device(cuda)
     cfg = small_config(width=32, height=1080, num_rays=8192, seed=1234567891,
                        texture_filter=texture_filter)
-    assert tr._fused_shade(cfg, sd, cuda) and tr._textured_shade(sd)
+    assert kshade.variant(cfg, sd, cuda) == kshade.TEXTURED
     assert {w for m in sd.tex_meta for w in m[3:5]} == {0, 1, 2}
     tables = tr.PacketTables(sd.bvh)
     sky = tsky.SkyParams(cfg.sky)
@@ -168,7 +168,7 @@ def test_captured_steps_textured_against_plain(cuda, scene, texture_filter,
     for step in range(4):
         fused.step(cam, 1)
         with monkeypatch.context() as m:
-            m.setattr(tr, "_fused_shade", lambda *a: False)
+            m.setattr(kshade, "variant", lambda *a: None)
             plain.step(cam, 1)
         torch.cuda.synchronize()
         a, b = fused.state, plain.state
@@ -232,7 +232,7 @@ def test_ggx_spheres_match_plain(cuda, normals):
     sd = _ggx_spheres_scene(cuda)
     cfg = small_config(width=64, height=48, num_rays=4096, seed=99,
                        use_kernel_normals="on" if normals else "off")
-    assert tr._fused_shade(cfg, sd, cuda) and tr._textured_shade(sd)
+    assert kshade.variant(cfg, sd, cuda) == kshade.TEXTURED
     tables = tr.PacketTables(sd.bvh)
     sky = tsky.SkyParams(cfg.sky)
     sun = tsky.sun_direction_from_position(SUN, cuda)

@@ -2,10 +2,10 @@
 
 The port's own copy of the JAX package's configuration.  Field names,
 order, defaults and the validation in ``RenderConfig.__post_init__`` are
-the same, so one set of settings means the same render in both packages
-and ``render.check_config`` can compare a config against the defaults
-field by field.  Fields the port does not implement yet are refused when
-a ``Renderer`` is built (``render.check_config``).
+the same, so one set of settings means the same render in both packages.
+The port implements every field; the JAX package's TPU kernel selectors
+(``use_packet_kernel``, ``use_accum_kernel``, ``adaptive_connect``,
+``adaptive_connect_frac``) are accepted and have no effect.
 """
 
 from __future__ import annotations
@@ -52,12 +52,8 @@ class BVHConfig:
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
-    """Top-level render settings (the JAX package's fields, in its order).
-
-    The port implements the resolution, queue, bounce, epsilon, sky, BVH,
-    focal-scale, raygen-order, tone-map, exposure, bloom, denoise and
-    ``packet_kernel_mode`` fields; ``render.check_config`` names the rest.
-    """
+    """Top-level render settings (the JAX package's fields, in its
+    order)."""
 
     width: int = 1920
     height: int = 1080

@@ -68,11 +68,17 @@ def ray_sphere(origin, direction, center, radius):
     return torch.where(disc < 0, zero, t)
 
 
+def ray_spheres(origin, direction, centers, radii):
+    """:func:`ray_sphere` of every ray [N] against every sphere [S]: t
+    [N, S], 0 on a miss."""
+    return ray_sphere(origin[:, None, :], direction[:, None, :],
+                      centers[None, :, :], radii[None, :])
+
+
 def intersect_spheres(origin, direction, centers, radii):
     """Closest hit against a small sphere list; the lowest index wins
     ties.  Returns (t [N], idx [N]) with VERY_FAR / -1 on a miss."""
-    t_all = ray_sphere(origin[:, None, :], direction[:, None, :],
-                       centers[None, :, :], radii[None, :])  # [N, S]
+    t_all = ray_spheres(origin, direction, centers, radii)
     t_all = torch.where(t_all > 0.0, t_all, torch.full_like(t_all, VERY_FAR))
     t, idx = torch.min(t_all, dim=1)
     idx = torch.where(t < VERY_FAR, idx, torch.full_like(idx, -1))

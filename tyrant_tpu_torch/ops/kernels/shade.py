@@ -1,15 +1,18 @@
-"""The shade stage of the render step in CUDA: one launch of
-``csrc/shade.cu`` on the base feature set that ``render._fused_shade``
-admits (the sphere materials DIFF, SPEC, REFR, PHONG and LIGHT, triangles
-from their tri_shade rows or, with ``tri_normal`` on a
-``tri_default_mat`` scene, from the traversal's hit normals, at most one
-emissive sphere plus the sun and the analytic sky, the xorshift streams,
-no MIS), and two launches of ``csrc/shade_textured.cu`` on the textured
-feature set (``render.SHADE_TEXTURED_SCENE``: albedo, normal, roughness
-and metalness maps, cutout and blend pass-throughs, GGX; "nearest" or
-"bilinear" filtering): :func:`surface`, the hit's surface record, then
-:func:`shade_textured`.  Their plain version is ``render._shade_plain``,
-which every other configuration and every CPU tensor takes.
+"""The shade stage of the render step in CUDA, and the one place that
+decides which shade calls a kernel takes (:func:`variant`, from the gate
+table below) and runs them (:func:`run`).  The base kernel,
+``csrc/shade.cu``, is one launch on the base feature set (the sphere
+materials DIFF, SPEC, REFR, PHONG and LIGHT, triangles from their
+tri_shade rows or, with ``tri_normal`` on a ``tri_default_mat`` scene,
+from the traversal's hit normals, at most one emissive sphere plus the
+sun and the analytic sky, the xorshift streams, no MIS).  The textured
+variant, ``csrc/shade_textured.cu``, is two launches on the textured
+feature set (the flags of :data:`GATE_BITS`: albedo, normal, roughness
+and metalness maps, cutout and blend pass-throughs, GGX; a filter of
+:data:`TEXTURE_FILTERS`): :func:`surface`, the hit's surface record,
+then :func:`shade_textured`.  Their plain version is
+``render._shade_plain``, which every other call and every CPU tensor
+takes.
 
 The kernels write the tensors the plain body returns, with their dtypes
 and layouts (bool as bytes), and launch on the current stream without a
@@ -31,7 +34,9 @@ import torch
 
 from ...config import VERY_FAR, SkyConfig
 from ...device import constant
+from ...scene.scene import GGX, PASS
 from ...sky import RAYLEIGH_AT_X
+from ...utils import profiling as _prof
 from . import build
 
 # kernel launches since the last reset: the base kernel's, and the
@@ -39,6 +44,29 @@ from . import build
 launches = 0
 launches_surface = 0
 launches_textured = 0
+
+# The gate table.  A shade call goes to the plain body where a SceneData
+# attribute of PLAIN_SCENE is truthy, or a RenderConfig field of
+# KERNEL_CONFIG holds another value than the kernels'.  Where a flag of
+# GATE_BITS is truthy, the textured variant takes the call under a
+# texture_filter of TEXTURE_FILTERS, the plain body under any other.
+PLAIN_SCENE = ("has_envmap", "smooth_normals", "has_rrefr", "has_var_ior",
+               "n_tri_lights", "n_delta_lights")
+KERNEL_CONFIG = {"sampler": "xorshift", "mis": "off", "fog": "off",
+                 "dispersion": 0.0}
+# the textured flags, each with its bit in shade_textured.cu's gates,
+# and the bit of the traversal's hit normals
+GATE_BITS = {"has_albedo_tex": 1, "has_normal_maps": 2, "has_rough_maps": 4,
+             "has_metal_maps": 8, "has_alpha_tex": 16, "has_blend": 32,
+             "has_ggx": 64}
+KERNEL_NORMALS_BIT = 128
+# the texture filters the surface kernel implements
+TEXTURE_FILTERS = ("nearest", "bilinear")
+# what :func:`variant` returns
+BASE, TEXTURED = "base", "textured"
+# the surface record's material word: the material in its low byte, and
+# this bit on a triangle hit that taps an albedo map
+TEX_HIT_BIT = 1 << 8
 
 _INTS = ("n", "max_bounces", "row_offset", "light", "has_light",
          "n_tri_rows", "n_sphere_rows")
@@ -61,19 +89,55 @@ class _SurfaceConsts(ctypes.Structure):
                                             "gates", "bilinear")]
 
 
-# shade_textured.cu's gate bits, by the SceneData flag each stands for,
-# and the bit of the traversal's hit normals
-GATE_BITS = {"has_albedo_tex": 1, "has_normal_maps": 2, "has_rough_maps": 4,
-             "has_metal_maps": 8, "has_alpha_tex": 16, "has_blend": 32,
-             "has_ggx": 64}
-KERNEL_NORMALS_BIT = 128
-# the surface record's material word: the material in its low byte, and
-# this bit on a triangle hit that taps an albedo map
-TEX_HIT_BIT = 1 << 8
-# the texture filters the surface kernel implements
-TEXTURE_FILTERS = ("nearest", "bilinear")
-# the queue's tensors the surface kernel reads, in its order
-_SURFACE_RAYS = ("origin", "direction", "pixel", "t", "ident", "is_tri")
+def variant(cfg, scene, device) -> str | None:
+    """Which kernel takes a shade call on ``device``: None (the plain
+    body) off CUDA, where a gate of PLAIN_SCENE or KERNEL_CONFIG is on, or
+    without one light sphere or none (several are a light pick the
+    kernels leave out) among at least one sphere; else TEXTURED where a
+    flag of GATE_BITS is on (None under a texture_filter outside
+    TEXTURE_FILTERS), BASE where none is."""
+    if not (torch.device(device).type == "cuda"
+            and all(getattr(cfg, k) == v for k, v in KERNEL_CONFIG.items())
+            and not any(getattr(scene, k) for k in PLAIN_SCENE)
+            and scene.n_spheres > 0 and len(scene.light_indices) <= 1):
+        return None
+    if not any(getattr(scene, k) for k in GATE_BITS):
+        return BASE
+    return TEXTURED if cfg.texture_filter in TEXTURE_FILTERS else None
+
+
+def run(kind: str, cfg, scene, sky_params, sun_dir, rays, t, ident, is_tri,
+        frame, tri_normal=None, row_offset: int = 0):
+    """``render._shade`` on the kernel ``kind`` of :func:`variant`: one
+    launch of :func:`shade` (BASE), or :func:`surface` then
+    :func:`shade_textured` (TEXTURED; with the tracer on, the
+    ``fetch_end`` marker between them, and the counters ``tex_hits``,
+    ``alpha_pass`` and ``ggx_hits`` from the surface record's material
+    words).  With the tracer on, either counts ``shade_fused`` (the slots
+    it shaded) and ``roulette_kills``.  ``tri_normal``: the traversal's
+    hit normals on a ``tri_default_mat`` scene, else None.  Returns
+    (color, survive, next_rays, shadow)."""
+    if kind == TEXTURED:
+        record = surface(cfg, scene, rays, t, ident, is_tri, frame,
+                         tri_normal, row_offset)
+        if _prof.ON:
+            _prof.mark(t.device, _prof.FETCH_END)
+            word = record.view(torch.int32)[:, 7]  # a view: no launch
+            _prof.defer("tex_hits", lambda: ((word & TEX_HIT_BIT) != 0).sum())
+            _prof.defer("alpha_pass", lambda: ((word & 0xFF) == PASS).sum())
+            _prof.defer("ggx_hits", lambda: ((word & 0xFF) == GGX).sum())
+        out = shade_textured(cfg, scene, sky_params, sun_dir, rays, t, ident,
+                             is_tri, frame, record, row_offset)
+    else:
+        out = shade(cfg, scene, sky_params, sun_dir, rays, t, ident, is_tri,
+                    frame, tri_normal, row_offset)
+    if _prof.ON:
+        survive = out[1]
+        _prof.defer("shade_fused", lambda: cfg.num_rays)
+        _prof.defer("roulette_kills", lambda: (
+            (t < VERY_FAR) & (rays["bounces"] < cfg.max_bounces)
+            & ~survive).sum())
+    return out
 
 
 @functools.lru_cache(maxsize=None)
@@ -112,19 +176,35 @@ def _consts(cfg, scene, sky_params, row_offset: int) -> _Consts:
     return c
 
 
-def _check(dev, args) -> None:
-    for name, x, dtype, shape in args:
+def _pointers(dev, args) -> list:
+    """The data pointers of ``args`` in order: each a (name, tensor, dtype,
+    shape) entry, checked to be a contiguous ``dtype`` tensor of ``shape``
+    on ``dev``, or None, an input the launch leaves out (a null
+    pointer)."""
+    for a in args:
+        if a is None:
+            continue
+        name, x, dtype, shape = a
         if x.device != dev:
             raise ValueError(f"{name} is on {x.device}, t on {dev}")
         if x.dtype != dtype or tuple(x.shape) != shape \
                 or not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous {dtype} of shape "
                              f"{shape}, got {x.dtype} {tuple(x.shape)}")
+    return [None if a is None else a[1].data_ptr() for a in args]
+
+
+def _launch(entry: str, dev, *args) -> None:
+    """Call the library's ``entry`` with ``args`` and the current stream,
+    and raise on a CUDA error."""
+    lib = build.load()
+    err = getattr(lib, entry)(*args,
+                              torch.cuda.current_stream(dev).cuda_stream)
+    build.check(lib, err, f"{entry} launch")
 
 
 def _ray_inputs(cfg, rays, t, ident, is_tri) -> list:
-    """The queue's tensors both kernels read, checked as _check takes
-    them."""
+    """The queue's tensors the kernels read, as _pointers takes them."""
     n = cfg.num_rays
     f32, b8, i32 = torch.float32, torch.bool, torch.int32
     return [("origin", rays["origin"], f32, (n, 3)),
@@ -167,43 +247,45 @@ def _outputs(n: int, dev, pixel):
     return (color, survive, next_rays, shadow), outs
 
 
-def _sky_tables(scene, sky_params, sun_dir, frame, dev) -> list:
-    f32 = torch.float32
+def _shade_launch(entry: str, cfg, scene, sky_params, sun_dir, rays, t,
+                  frame, ins, row_offset: int, *gates):
+    """The launch both shade kernels make: ``ins`` (the ray, hit and
+    surface inputs), the sphere table and the sky's, the constants,
+    ``gates``, the outputs.  Returns (color, survive, next_rays,
+    shadow)."""
+    dev = t.device
     frame = torch.as_tensor(frame, dtype=torch.int64, device=dev)
-    return [("sphere_table", scene.sphere_table, f32,
-             (scene.sphere_table.shape[0], 12)),
-            ("sun_dir", sun_dir.to(dev, f32).contiguous(), f32, (3,)),
-            ("total_mie", sky_params.total_mie(dev), f32, (3,)),
-            ("frame", frame, torch.int64, ())]
+    ptrs = _pointers(dev, ins + [
+        ("sphere_table", scene.sphere_table, torch.float32,
+         (scene.sphere_table.shape[0], 12)),
+        ("sun_dir", sun_dir.to(dev, torch.float32).contiguous(),
+         torch.float32, (3,)),
+        ("total_mie", sky_params.total_mie(dev), torch.float32, (3,)),
+        ("frame", frame, torch.int64, ())])
+    result, outs = _outputs(cfg.num_rays, dev, rays["pixel"])
+    consts = _consts(cfg, scene, sky_params, row_offset)
+    _launch(entry, dev, *ptrs, ctypes.addressof(consts), *gates,
+            *(x.data_ptr() for x in outs))
+    return result
 
 
 def shade(cfg, scene, sky_params, sun_dir, rays, t, ident, is_tri, frame,
           tri_normal=None, row_offset: int = 0):
-    """``render._shade`` in one kernel launch, for CUDA tensors: (color,
-    survive, next_rays, shadow).  ``tri_normal`` [N, 3]: the traversal's
-    hit normals on a ``tri_default_mat`` scene (the kernel's normals
-    variant), else None (the tri_shade rows).  ``frame`` is the salted
-    frame counter, an int64 tensor on the device (read by the kernel, so a
-    captured graph sees each replay's)."""
+    """The base kernel: ``render._shade`` in one launch, for CUDA
+    tensors: (color, survive, next_rays, shadow).  ``tri_normal`` [N, 3]:
+    the traversal's hit normals on a ``tri_default_mat`` scene (the
+    kernel's normals variant), else None (the tri_shade rows).  ``frame``
+    is the salted frame counter, an int64 tensor on the device (read by
+    the kernel, so a captured graph sees each replay's)."""
     global launches
-    n, dev = cfg.num_rays, _device_of(t)
-    ins = _ray_inputs(cfg, rays, t, ident, is_tri)
-    if tri_normal is not None:
-        ins.append(("tri_normal", tri_normal, torch.float32, (n, 3)))
-    tables = [("tri_shade", scene.tri_shade, torch.float32,
-               (scene.tri_shade.shape[0], 8))] \
-        + _sky_tables(scene, sky_params, sun_dir, frame, dev)
-    _check(dev, ins + tables)
-    result, outs = _outputs(n, dev, rays["pixel"])
-    consts = _consts(cfg, scene, sky_params, row_offset)
-    ptrs = [x.data_ptr() for _, x, _, _ in ins[:9]]
-    ptrs.append(None if tri_normal is None else tri_normal.data_ptr())
-    ptrs += [x.data_ptr() for _, x, _, _ in tables]
-    lib = build.load()
-    err = lib.tyrant_shade(*ptrs, ctypes.addressof(consts),
-                           *(x.data_ptr() for x in outs),
-                           torch.cuda.current_stream(dev).cuda_stream)
-    build.check(lib, err, "tyrant_shade launch")
+    _device_of(t)
+    ins = _ray_inputs(cfg, rays, t, ident, is_tri) + [
+        None if tri_normal is None
+        else ("tri_normal", tri_normal, torch.float32, (cfg.num_rays, 3)),
+        ("tri_shade", scene.tri_shade, torch.float32,
+         (scene.tri_shade.shape[0], 8))]
+    result = _shade_launch("tyrant_shade", cfg, scene, sky_params, sun_dir,
+                           rays, t, frame, ins, row_offset)
     launches += 1
     return result
 
@@ -243,24 +325,23 @@ def surface(cfg, scene, rays, t, ident, is_tri, frame, tri_normal=None,
         raise ValueError(f"the textured shade kernel filters "
                          f"{TEXTURE_FILTERS}, not {cfg.texture_filter!r}")
     f32 = torch.float32
-    ins = [x for x in _ray_inputs(cfg, rays, t, ident, is_tri)
-           if x[0] in _SURFACE_RAYS]
-    if tri_normal is not None:
-        ins.append(("tri_normal", tri_normal, f32, (n, 3)))
     meta = _tex_meta(scene, dev)
     frame = torch.as_tensor(frame, dtype=torch.int64, device=dev)
-    tables = [("tri_shade", scene.tri_shade, f32,
-               (scene.tri_shade.shape[0], 8)),
-              ("tri_attr", scene.tri_attr, f32,
-               (scene.tri_attr.shape[0], 32)),
-              ("sphere_table", scene.sphere_table, f32,
-               (scene.sphere_table.shape[0], 12)),
-              ("frame", frame, torch.int64, ())]
-    if meta is not None:
-        tables += [("tex_data", scene.tex_data, f32,
-                    (scene.tex_data.shape[0], 4)),
-                   ("tex_meta", meta, torch.int32, (meta.shape[0], 5))]
-    _check(dev, ins + tables)
+    origin, direction, _, pixel, _, _, *hit = _ray_inputs(cfg, rays, t,
+                                                          ident, is_tri)
+    ptrs = _pointers(dev, [
+        origin, direction, pixel, *hit,
+        None if tri_normal is None
+        else ("tri_normal", tri_normal, f32, (n, 3)),
+        ("tri_shade", scene.tri_shade, f32, (scene.tri_shade.shape[0], 8)),
+        ("tri_attr", scene.tri_attr, f32, (scene.tri_attr.shape[0], 32)),
+        ("sphere_table", scene.sphere_table, f32,
+         (scene.sphere_table.shape[0], 12)),
+        ("frame", frame, torch.int64, ()),
+        None if meta is None
+        else ("tex_data", scene.tex_data, f32, (scene.tex_data.shape[0], 4)),
+        None if meta is None
+        else ("tex_meta", meta, torch.int32, (meta.shape[0], 5))])
     record = torch.empty((n, 8), dtype=f32, device=dev)
     consts = _consts(cfg, scene, None, row_offset)
     sc = _SurfaceConsts(n_attr_rows=scene.tri_attr.shape[0],
@@ -268,16 +349,8 @@ def surface(cfg, scene, rays, t, ident, is_tri, frame, tri_normal=None,
                         else scene.tex_data.shape[0],
                         gates=_gates(scene, tri_normal is not None),
                         bilinear=int(cfg.texture_filter == "bilinear"))
-    ptrs = [x.data_ptr() for _, x, _, _ in ins[:6]]
-    ptrs.append(None if tri_normal is None else tri_normal.data_ptr())
-    ptrs += [x.data_ptr() for _, x, _, _ in tables[:4]]
-    ptrs += [None, None] if meta is None \
-        else [scene.tex_data.data_ptr(), meta.data_ptr()]
-    lib = build.load()
-    err = lib.tyrant_shade_surface(
-        *ptrs, ctypes.addressof(consts), ctypes.addressof(sc),
-        record.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    build.check(lib, err, "tyrant_shade_surface launch")
+    _launch("tyrant_shade_surface", dev, *ptrs, ctypes.addressof(consts),
+            ctypes.addressof(sc), record.data_ptr())
     launches_surface += 1
     return record
 
@@ -288,19 +361,11 @@ def shade_textured(cfg, scene, sky_params, sun_dir, rays, t, ident, is_tri,
     ray, the hit and the surface record of :func:`surface`, for CUDA
     tensors: (color, survive, next_rays, shadow)."""
     global launches_textured
-    n, dev = cfg.num_rays, _device_of(t)
-    ins = _ray_inputs(cfg, rays, t, ident, is_tri)[:8]
-    ins.append(("record", record, torch.float32, (n, 8)))
-    tables = _sky_tables(scene, sky_params, sun_dir, frame, dev)
-    _check(dev, ins + tables)
-    result, outs = _outputs(n, dev, rays["pixel"])
-    consts = _consts(cfg, scene, sky_params, row_offset)
-    lib = build.load()
-    err = lib.tyrant_shade_textured(
-        *(x.data_ptr() for _, x, _, _ in ins + tables),
-        ctypes.addressof(consts), _gates(scene),
-        *(x.data_ptr() for x in outs),
-        torch.cuda.current_stream(dev).cuda_stream)
-    build.check(lib, err, "tyrant_shade_textured launch")
+    _device_of(t)
+    ins = _ray_inputs(cfg, rays, t, ident, is_tri)[:8] + [
+        ("record", record, torch.float32, (cfg.num_rays, 8))]
+    result = _shade_launch("tyrant_shade_textured", cfg, scene, sky_params,
+                           sun_dir, rays, t, frame, ins, row_offset,
+                           _gates(scene))
     launches_textured += 1
     return result

@@ -32,7 +32,7 @@ from ..device import resolve
 from ..ops import kernels
 from ..ops.kernels.traverse import PacketTables
 from ..ops.tonemap import resolve as resolve_image
-from ..render import RenderState, check_config, init_state, render_step
+from ..render import RenderState, init_state, render_step
 from ..scene.scene import Scene, SceneData
 
 
@@ -144,7 +144,6 @@ class ShardedRenderer:
     def __init__(self, scene, cfg: RenderConfig, devices=None,
                  sun_position=(0.05, 0.3), *,
                  tables: PacketTables | None = None):
-        check_config(cfg)
         self.cfg = cfg
         self.mesh = make_mesh(devices)
         self.local_height = _local_height(cfg, self.mesh)

@@ -23,8 +23,9 @@ shadow rays (connect), and runs one stable sort that both compacts the
 survivors for the next step and orders finished paths by pixel for the
 accumulation.  Extend and connect go through a traversal kernel (the
 generation ``packet_kernel_mode`` selects), the accumulation through
-the accumulation kernel and, on the base feature set, shade through the
-shade kernel (``ops/kernels``); the rest is plain PyTorch.
+the accumulation kernel and shade, where ``ops/kernels/shade.variant``
+picks one, through a shade kernel (``ops/kernels``); the rest is plain
+PyTorch.
 :class:`Renderer` also resolves the display image, optionally denoised
 with the guides of one AOV pass per pose (:func:`render_aovs`) and
 bloomed.
@@ -70,7 +71,7 @@ from .config import EPSILON, INV_PI, PI, VERY_FAR, RenderConfig
 from .denoise import atrous_denoise
 from .device import resolve
 from .ops import kernels, rng, sobol
-from .ops.intersect import intersect_spheres, ray_sphere
+from .ops.intersect import intersect_spheres, ray_spheres
 from .ops.kernels import shade as kshade
 from .ops.kernels.accum import accumulate_terminated, sentinel
 from .ops.kernels.traverse import (PacketTables, any_hit_packets,
@@ -87,49 +88,12 @@ from .ops.sampling import (concentric_sample_disk, cone_sample,
                            triangle_sample_from_uniforms)
 from .ops.tonemap import bloom, to_uint8, tonemap_image
 from .scene.envlight import LUM_RGB
-from .scene.scene import (DIFF, GGX, LIGHT, PHONG, REFR, RREFR, SPEC, Scene,
-                          SceneData)
+from .scene.scene import (DIFF, FOG, GGX, LIGHT, PASS, PHONG, REFR, RREFR,
+                          SPEC, Scene, SceneData)
 from .utils import profiling as _prof
 
 PHONG_EXPONENT = 40.0
 _KEY_GRID = 8  # survivor-ordering spatial grid resolution
-
-# shade-only pseudo-materials, never stored in a scene table: a fog medium
-# event and an alpha-cutout pass-through (the JAX package's ids)
-FOG = 6
-PASS = 7
-
-# RenderConfig fields the port implements; the TPU-only selectors in the
-# second group are accepted and have no effect (CUDA tensors always take
-# the kernels, CPU tensors the plain versions)
-_PORTED_FIELDS = {"width", "height", "num_rays", "max_bounces", "epsilon",
-                  "sky", "bvh", "focal_distance_scale", "raygen_order",
-                  "tonemap", "exposure", "packet_kernel_mode", "denoise",
-                  "denoise_iterations", "bloom_strength", "bloom_threshold",
-                  "bloom_radius", "dispersion", "use_kernel_normals",
-                  "fuse_step_chains", "mis", "light_sampling",
-                  "texture_filter", "fog", "fog_sigma_s", "fog_sigma_a",
-                  "fog_g", "fog_z_min", "fog_z_max", "fog_falloff",
-                  "sampler", "seed", "projection", "fisheye_fov_degrees",
-                  "ortho_height", "bokeh_blades", "bokeh_rotation",
-                  "motion_blur", "crop", "radiance_clamp",
-                  "adaptive_sampling", "adaptive_interval", "adaptive_gamma",
-                  "track_variance"}
-_IGNORED_SELECTORS = {"use_packet_kernel", "use_accum_kernel",
-                      "adaptive_connect", "adaptive_connect_frac"}
-
-
-def check_config(cfg: RenderConfig) -> None:
-    """Raise ValueError naming the first field that is off its default and
-    that the port does not implement."""
-    default = RenderConfig()
-    for f in dataclasses.fields(RenderConfig):
-        if f.name in _PORTED_FIELDS or f.name in _IGNORED_SELECTORS:
-            continue
-        if getattr(cfg, f.name) != getattr(default, f.name):
-            raise ValueError(f"RenderConfig.{f.name}={getattr(cfg, f.name)!r} "
-                             "is not ported to tyrant_tpu_torch")
-
 
 @dataclasses.dataclass
 class RenderState:
@@ -424,16 +388,22 @@ def _raygen(cfg: RenderConfig, camera: CameraParams, start_position, frame,
 # extend
 # --------------------------------------------------------------------------
 
-def _pick_wave(cfg: RenderConfig, stage: str) -> bool:
-    """Traversal-kernel generation for one stage ("extend", "connect" or
-    "aov"): the warp-packet wave kernel under "wave" (and its deprecated
-    spelling "wave-unsafe"), the one-ray-per-thread kernel under "mono"
-    and "auto".  The JAX package's per-stage "auto" table was set from TPU
-    measurements; the port's "auto" stays mono on every stage until the
-    H100's in-step numbers give it a per-stage table (ROADMAP Queue 1
-    item 15), which is what ``stage`` is for."""
-    del stage  # every stage follows the mode alike for now
+def _pick_wave(cfg: RenderConfig) -> bool:
+    """Traversal-kernel generation of every stage that traverses (extend,
+    connect, the AOV pass): the warp-packet wave kernel under "wave" (and
+    its deprecated spelling "wave-unsafe"), the one-ray-per-thread kernel
+    under "mono" and "auto".  The JAX package's per-stage "auto" table was
+    set from TPU measurements; the port's "auto" stays mono on every stage
+    until the H100's in-step numbers give it a per-stage table."""
     return cfg.packet_kernel_mode in ("wave", "wave-unsafe")
+
+
+def kernel_normals(cfg: RenderConfig, scene: SceneData) -> bool:
+    """Whether extend returns the traversal's hit normals for shade to
+    use: under ``use_kernel_normals`` "on", on a ``tri_default_mat`` scene
+    (every triangle of the default material, the one triangle shading
+    they replace)."""
+    return cfg.use_kernel_normals == "on" and scene.tri_default_mat
 
 
 def sphere_pass(origin, direction, scene: SceneData):
@@ -1643,84 +1613,19 @@ def _sobol_draws(cfg: RenderConfig, rays, row_offset: int = 0):
             lambda purpose: sobol.sample_2d(s_idx, key(purpose)))
 
 
-# What the shade kernels leave to _shade_plain, in one place: a shade call
-# goes to the plain body where a SceneData attribute named in
-# SHADE_PLAIN_SCENE is truthy, or a RenderConfig field of
-# SHADE_KERNEL_CONFIG holds another value than the kernels'.  Where a flag
-# of SHADE_TEXTURED_SCENE is truthy, the textured variant
-# (csrc/shade_textured.cu) takes the call under a texture_filter of
-# SHADE_TEXTURED_FILTERS, the plain body under any other.
-SHADE_PLAIN_SCENE = (
-    "has_envmap", "smooth_normals", "has_rrefr", "has_var_ior",
-    "n_tri_lights", "n_delta_lights")
-SHADE_TEXTURED_SCENE = (
-    "has_albedo_tex", "has_textures", "has_normal_maps", "has_rough_maps",
-    "has_alpha_tex", "has_blend", "has_metal_maps", "has_ggx")
-SHADE_TEXTURED_FILTERS = kshade.TEXTURE_FILTERS
-SHADE_KERNEL_CONFIG = {"sampler": "xorshift", "mis": "off", "fog": "off",
-                       "dispersion": 0.0}
-
-
-def _textured_shade(scene: SceneData) -> bool:
-    """Whether a kernel shade call takes the textured variant: a flag of
-    SHADE_TEXTURED_SCENE is on."""
-    return any(getattr(scene, k) for k in SHADE_TEXTURED_SCENE)
-
-
-def _fused_shade(cfg: RenderConfig, scene: SceneData, device) -> bool:
-    """Whether a shade kernel (``ops/kernels/shade.py``) takes a shade
-    call on ``device``: CUDA, every gate of SHADE_PLAIN_SCENE and
-    SHADE_KERNEL_CONFIG off, one light sphere or none (several are a
-    light pick the kernels leave out) among at least one sphere, and
-    with a flag of SHADE_TEXTURED_SCENE on, a texture_filter of
-    SHADE_TEXTURED_FILTERS."""
-    return (torch.device(device).type == "cuda"
-            and all(getattr(cfg, k) == v
-                    for k, v in SHADE_KERNEL_CONFIG.items())
-            and not any(getattr(scene, k) for k in SHADE_PLAIN_SCENE)
-            and scene.n_spheres > 0 and len(scene.light_indices) <= 1
-            and (cfg.texture_filter in SHADE_TEXTURED_FILTERS
-                 or not _textured_shade(scene)))
-
-
 def _shade(cfg: RenderConfig, scene: SceneData, sky_params: skymod.SkyParams,
            sun_dir, rays, t, ident, is_tri, frame, tri_normal=None,
            row_offset: int = 0):
     """Shade every queue slot.  Returns (color, survive, next_rays,
-    shadow).  Where :func:`_fused_shade` admits the call, one launch of
-    the base kernel, or on the textured feature set two of the textured
-    variant, the surface fetch and the shading (with the tracer on, the
-    ``fetch_end`` marker between them, and the counters ``tex_hits``,
-    ``alpha_pass`` and ``ggx_hits`` from the surface record); either
-    counts ``shade_fused``, the slots it shaded.  Else
-    :func:`_shade_plain`, their plain version."""
-    if not _fused_shade(cfg, scene, t.device):
+    shadow).  Where ``kshade.variant`` picks a shade kernel for the call,
+    ``kshade.run`` launches it (and counts ``shade_fused``, the slots it
+    shaded); else :func:`_shade_plain`, their plain version."""
+    kind = kshade.variant(cfg, scene, t.device)
+    if kind is None:
         return _shade_plain(cfg, scene, sky_params, sun_dir, rays, t, ident,
                             is_tri, frame, tri_normal, row_offset)
-    tri_normal = tri_normal if scene.tri_default_mat else None
-    if _textured_shade(scene):
-        record = kshade.surface(cfg, scene, rays, t, ident, is_tri, frame,
-                                tri_normal, row_offset)
-        if _prof.ON:
-            _prof.mark(t.device, _prof.FETCH_END)
-            word = record.view(torch.int32)[:, 7]  # a view: no launch
-            _prof.defer("tex_hits", lambda: (
-                (word & kshade.TEX_HIT_BIT) != 0).sum())
-            _prof.defer("alpha_pass", lambda: ((word & 0xFF) == PASS).sum())
-            _prof.defer("ggx_hits", lambda: ((word & 0xFF) == GGX).sum())
-        color, survive, next_rays, shadow = kshade.shade_textured(
-            cfg, scene, sky_params, sun_dir, rays, t, ident, is_tri, frame,
-            record, row_offset)
-    else:
-        color, survive, next_rays, shadow = kshade.shade(
-            cfg, scene, sky_params, sun_dir, rays, t, ident, is_tri, frame,
-            tri_normal, row_offset)
-    if _prof.ON:
-        _prof.defer("shade_fused", lambda: cfg.num_rays)
-        _prof.defer("roulette_kills", lambda: (
-            (t < VERY_FAR) & (rays["bounces"] < cfg.max_bounces)
-            & ~survive).sum())
-    return color, survive, next_rays, shadow
+    return kshade.run(kind, cfg, scene, sky_params, sun_dir, rays, t, ident,
+                      is_tri, frame, tri_normal, row_offset)
 
 
 def _shade_plain(cfg: RenderConfig, scene: SceneData,
@@ -1910,8 +1815,7 @@ def _connect(scene: SceneData, shadow, tables: PacketTables,
                        torch.zeros_like(shadow["max_dist"]))
     occluded = any_hit_packets(o, sdir, maxd, tables,
                                wave=wave)  # invalid: maxd 0
-    t_all = ray_sphere(o[:, None, :], sdir[:, None, :],
-                       scene.sphere_center[None], scene.sphere_radius[None])
+    t_all = ray_spheres(o, sdir, scene.sphere_center, scene.sphere_radius)
     sph_occ = ((t_all > 0.0) & ((t_all + EPSILON) < maxd[:, None])).any(1)
     occluded = occluded | sph_occ
     if _prof.ON:
@@ -1954,7 +1858,7 @@ def render_aovs(scene: SceneData, camera: CameraParams, cfg: RenderConfig,
     w, h = cfg.width, cfg.height
     o, d = aov_primaries(camera, cfg)
     t, ident, is_tri = _intersect_scene(o, d, scene, tables,
-                                        wave=_pick_wave(cfg, "aov"))
+                                        wave=_pick_wave(cfg))
     hit = t < VERY_FAR
     hp = o + d * _col(torch.where(hit, t, torch.zeros_like(t)))
     is_sphere = hit & ~is_tri
@@ -2114,13 +2018,11 @@ def render_step(state: RenderState, scene: SceneData, camera: CameraParams,
         sample_base_next = (state.sample_base + scanned // total) \
             & 0xFFFFFFFF
 
-    # 2. extend (with the hit normals under use_kernel_normals, on a scene
-    # whose triangles all have the default material)
-    kernel_normals = cfg.use_kernel_normals == "on" and scene.tri_default_mat
+    # 2. extend
     with _prof.stage(dev, 1):
         t, ident, is_tri, *tri_normal = _intersect_scene(
             rays["origin"], rays["direction"], scene, tables,
-            wave=_pick_wave(cfg, "extend"), normals=kernel_normals)
+            wave=_pick_wave(cfg), normals=kernel_normals(cfg, scene))
 
     # 3. shade
     with _prof.stage(dev, 2):
@@ -2132,7 +2034,7 @@ def render_step(state: RenderState, scene: SceneData, camera: CameraParams,
     # 4. connect
     with _prof.stage(dev, 3):
         shadow_contrib = _connect(scene, shadow, tables,
-                                  wave=_pick_wave(cfg, "connect"))
+                                  wave=_pick_wave(cfg))
 
     # 5. one stable sort: compaction of survivors AND pixel order of the
     # terminated rays (shade's RNG is keyed by queue slot, so the order
@@ -2282,7 +2184,6 @@ class Renderer:
     def __init__(self, scene, cfg: RenderConfig = RenderConfig(), *,
                  device="cuda", sun_position=(0.05, 0.3),
                  tables: PacketTables | None = None):
-        check_config(cfg)
         self.cfg = cfg
         self.device = resolve(device)
         self.scene = scene.to_device(self.device) if isinstance(scene, Scene) \

@@ -32,8 +32,10 @@ from .bvh import BVHArrays, build_bvh, bvh_stats, pack_meta
 from .envlight import LUM_RGB, build_alias, env_tables
 
 DIFF, SPEC, REFR, PHONG, LIGHT, GGX = 0, 1, 2, 3, 4, 5
-# rough dielectric ("frosted glass"); ids 6/7 are the JAX package's
-# FOG/PASS shade pseudo-materials
+# shade-only pseudo-materials, never stored in a scene table: a fog medium
+# event and an alpha-cutout pass-through (the JAX package's ids)
+FOG, PASS = 6, 7
+# rough dielectric ("frosted glass")
 RREFR = 8
 
 

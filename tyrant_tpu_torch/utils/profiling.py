@@ -21,8 +21,8 @@ records
   ``ring_steps`` rows a device, one row a render step, a column a marker
   (:data:`MARKERS`: the start of each of :data:`STAGES`, the step's end,
   the display resolve's start and end; then :data:`INNER`, the markers
-  inside a stage: ``fetch_end``, where the plain shade body's surface
-  fetch ends, which a step shaded by the shade kernel leaves empty).
+  inside a stage: ``fetch_end``, where the shade stage's surface fetch
+  ends, which a step shaded by the base shade kernel leaves empty).
   Captured into a CUDA graph, the markers record every replay with no
   host sync.  A stage
   (:func:`stage`) launches its marker and, under a profiler, is also a
@@ -74,11 +74,12 @@ INNER = ("fetch_end",)  # markers inside a stage, after MARKERS in a row
 FETCH_END = 9
 COLUMNS = MARKERS + INNER  # a step's row of the ring
 CLOCK = 10  # the calibration's marker, into a buffer of its own
-# shade_fused: the slots the shade kernel shaded (the queue, or 0 where
+# shade_fused: the slots a shade kernel shaded (the queue, or 0 where
 # the step took the plain shade body); tex_hits, alpha_pass, ggx_hits: the
-# plain body's triangle hits that tap an albedo map, slots whose hit
-# passed through a cutout or blend surface, and hits shaded as the GGX
-# conductor (0 where the shade kernel shaded)
+# triangle hits that tap an albedo map, slots whose hit passed through a
+# cutout or blend surface, and hits shaded as the GGX conductor, counted
+# by the plain body or from the textured kernel's surface record (0 where
+# the base shade kernel shaded)
 COUNTERS = ("fresh_rays", "tri_hits", "sphere_hits", "survivors",
             "roulette_kills", "shadow_slots", "shadow_valid", "unoccluded",
             "flushed", "shade_fused", "tex_hits", "alpha_pass", "ggx_hits")
@@ -540,14 +541,14 @@ def stage_profile(renderer, camera, n_steps: int = 5) -> dict:
     rays = merge_queue(cfg, state, cam)
     t_extend, ext = time_blocked(
         lambda: _intersect_scene(rays["origin"], rays["direction"], scene,
-                                 tables, wave=_pick_wave(cfg, "extend")),
+                                 tables, wave=_pick_wave(cfg)),
         reps=n_steps)
     t_shade, sh = time_blocked(
         lambda: _shade(cfg, scene, renderer.sky_params, renderer.sun_dir,
                        rays, *ext, frame), reps=n_steps)
     t_connect, _ = time_blocked(
         lambda: _connect(scene, sh[3], tables,
-                         wave=_pick_wave(cfg, "connect")), reps=n_steps)
+                         wave=_pick_wave(cfg)), reps=n_steps)
     t_full, _ = time_blocked(
         lambda: render_step(state, scene, cam, renderer.sun_dir, cfg=cfg,
                             tables=tables, sky_params=renderer.sky_params),
