@@ -19,7 +19,12 @@ renders on the CPU, and times the three poses with the pose harness.  The shade 
 held against its plain version (``render._shade_plain``) on the queue of
 the main cell's next step after three carried steps (the tri_shade
 variant, 2,097,152 slots) and on the interactive preset's (the kernel
-normals variant, 131,072 slots), and timed against both and a bound.
+normals variant, 131,072 slots), and timed against both and a bound; so
+is the sphere kernel (``csrc/spheres.cu``, ``spheres_at_slice``) in both
+modes, against ``intersect_spheres`` on the extend queue and the
+traversal's flags OR ``any_hit_spheres`` on the shadow queue, bit for
+bit, with the L2 evicted before each timed call.  Phase 3 counts both of
+its modes once a step wherever the scene has spheres.
 
 It then captures the main cell's step as a CUDA graph
 (``fuse_step_chains="auto"``): bit for bit the eager step after six
@@ -143,7 +148,10 @@ from tyrant_tpu_torch.ops import traverse as plain_trav  # noqa: E402
 from tyrant_tpu_torch.ops import kernels  # noqa: E402
 from tyrant_tpu_torch.ops.kernels import accum as kacc  # noqa: E402
 from tyrant_tpu_torch.ops.kernels import build  # noqa: E402
+from tyrant_tpu_torch.ops.intersect import (any_hit_spheres,  # noqa: E402
+                                            intersect_spheres)
 from tyrant_tpu_torch.ops.kernels import shade as kshade  # noqa: E402
+from tyrant_tpu_torch.ops.kernels import spheres as kspheres  # noqa: E402
 from tyrant_tpu_torch.ops.kernels import stream as kstream  # noqa: E402
 from tyrant_tpu_torch.ops.kernels import traverse as ktrav  # noqa: E402
 from tyrant_tpu_torch.ops.tonemap import bloom, resolve  # noqa: E402
@@ -223,6 +231,17 @@ TEXTURED_AT_STEP = ("rays", "mismatches", "by_category", "ms", "surface_ms",
 TEXTURED_CATEGORIES = ("miss", "sphere", "mapped_diff", "ggx", "cutout_pass",
                        "blend_shaded", "blend_passed", "other")
 STREAM_KERNELS = ("init_kernel", "level_kernel", "finish_kernel")
+# The sphere kernel (csrc/spheres.cu) and its wrapper's launch counters.
+# Its bound: the closest hit reads a ray (origin, direction: 24 bytes) and
+# writes t and the sphere id (8); the any hit reads the valid and occluded
+# flags and writes the result (3), and reads the ray and its max distance
+# (28) on a valid slot the traversal left unoccluded; 20 float operations
+# a ray-sphere pair (9 for op and its two dots' products, 4 adds, disc's 3
+# operations, the square root and the two roots).
+SPHERES_KERNELS = ("spheres_kernel",)
+SPHERE_KEYS = ("spheres_closest", "spheres_any")
+RAY_BYTES, HIT_BYTES, FLAG_BYTES, MAXD_BYTES = 24, 8, 3, 4
+SPHERE_PAIR_OPS = 20
 
 
 def log(msg: str) -> None:
@@ -945,6 +964,79 @@ def shade_at_step(ren, steps: int = 3, reps: int = 20) -> dict:
     return out
 
 
+def spheres_at_slice(ren, steps: int = 3, reps: int = 20) -> dict:
+    """Both modes of the sphere kernel (``csrc/spheres.cu``,
+    ``ops/kernels/spheres.py``) on the queues of ``ren``'s next step at pose
+    0, after ``steps`` more steps (so the queue holds carried rays): the
+    closest hit on the extend queue, the any hit on the shadow queue that
+    shade makes from those hits, with the traversal's occluded flags.  Each
+    against its plain version on the same tensors (``intersect_spheres``;
+    the traversal's flags OR ``any_hit_spheres``), bit for bit: t, the
+    sphere id, the flags.  The wrapper and the plain chain timed with CUDA
+    events, the L2 evicted before each call (the stage before leaves the
+    queue in device memory); the kernel alone from a profiler trace, back
+    to back; the bound in bytes (RAY_BYTES, HIT_BYTES, FLAG_BYTES and
+    MAXD_BYTES a slot).  No library offers the test, so ``library_ms`` is
+    None."""
+    cfg, sc = ren.cfg, ren.scene
+    cam = camera_for_pose(0)
+    ren.step(cam, steps)
+    st = ren.state
+    rays = tr.merge_queue(cfg, st, cam.to_device(cfg, DEV))
+    o, d = rays["origin"], rays["direction"]
+    c, r = sc.sphere_center, sc.sphere_radius
+    n, s = o.shape[0], c.shape[0]
+    normals = tr.kernel_normals(cfg, sc)
+    t, ident, is_tri, *tn = tr._intersect_scene(o, d, sc, ren.tables,
+                                                normals=normals)
+    _, _, _, shadow = tr._shade(cfg, sc, ren.sky_params, ren.sun_dir, rays,
+                                t, ident, is_tri,
+                                tr._salted_frame(cfg, st.frame),
+                                tri_normal=tn[0] if normals else None)
+    so, sd = shadow["origin"], shadow["direction"]
+    valid, md = shadow["valid"], shadow["max_dist"]
+    maxd = torch.where(valid, md, torch.zeros_like(md))
+    occ = ktrav.any_hit_packets(so, sd, maxd, ren.tables)
+    modes = {
+        "closest": (lambda: kspheres.closest(o, d, c, r),
+                    lambda: intersect_spheres(o, d, c, r)),
+        "any": (lambda: kspheres.any_hit(so, sd, c, r, occ, md, valid),
+                lambda: occ | any_hit_spheres(so, sd, c, r, maxd))}
+    (t_k, id_k), (t_p, id_p) = (f() for f in modes["closest"])
+    any_k, any_p = (f() for f in modes["any"])
+    tested = int((valid & ~occ & (md > 0)).sum())
+    out = dict(rays=n, spheres=s, carried=int(st.n_carried))
+    out["closest"] = dict(
+        t_mismatches=int((t_k.view(torch.int32)
+                          != t_p.view(torch.int32)).sum()),
+        id_mismatches=int((id_k != id_p).sum()),
+        sphere_hits=int((id_p >= 0).sum()))
+    out["any"] = dict(mismatches=int((any_k != any_p).sum()),
+                      valid=int(valid.sum()), tested=tested,
+                      traversal_occluded=int(occ.sum()),
+                      sphere_occluded=int((any_p & ~occ).sum()))
+    bounds = {"closest": (n * (RAY_BYTES + HIT_BYTES),
+                          n * s * SPHERE_PAIR_OPS),
+              "any": (n * FLAG_BYTES + tested * (RAY_BYTES + MAXD_BYTES),
+                      tested * s * SPHERE_PAIR_OPS)}
+    for mode, (kernel, plain) in modes.items():
+        e = out[mode]
+        e["ms"] = cuda_ms(kernel, reps, cold=True)
+        e["kernel_ms"] = kernel_ms(kernel, SPHERES_KERNELS)
+        e["plain_ms"] = cuda_ms(plain, 5, cold=True)
+        e["bound_ms"], e["bound_by"] = bound_ms(*bounds[mode])
+        e["library_ms"] = None
+    log(f"spheres at a step ({n} slots, {out['carried']} carried, {s} "
+        f"spheres): closest {json.dumps(out['closest'])}; any hit "
+        f"{json.dumps(out['any'])}")
+    bad = out["closest"]["t_mismatches"] + out["closest"]["id_mismatches"] \
+        + out["any"]["mismatches"]
+    if bad:
+        raise AssertionError(f"the sphere kernel differs from the plain "
+                             f"version: {out}")
+    return out
+
+
 def textured_bound(args) -> dict:
     """The textured variant's bound a kernel, in bytes at HBM rate, on
     the queue of ``args`` (``render._shade``'s): the surface kernel's ray
@@ -1074,15 +1166,16 @@ def tracer_on(on: bool = True):
 
 
 def check_counters(snap: dict, n: int, carried0: int, shadow0: int,
-                   seen: list) -> None:
+                   seen: list, spheres: bool) -> None:
     """The tracer's per-step counters in ``snap`` (``profiling.snapshot()``
     of a run of render steps on one device since ``enable``) against the
     states the steps returned: ``seen`` holds each step's (n_carried,
     shadow_rays) after it, ``carried0`` and ``shadow0`` those before the
     first.  Each step's ``shadow_valid`` must be its ``shadow_rays`` delta,
     ``shadow_slots`` the queue's ``n``, ``survivors`` its ``n_carried``,
-    ``flushed`` and ``fresh_rays`` what the queue dropped and topped up;
-    the running totals the rows' sums."""
+    ``flushed`` and ``fresh_rays`` what the queue dropped and topped up,
+    ``sphere_kernel`` 2n (extend's queue and connect's) in a scene with
+    ``spheres``, else 0; the running totals the rows' sums."""
     steps = snap["steps"]
     if len(steps) != len(seen):
         raise AssertionError(f"the tracer holds {len(steps)} steps, "
@@ -1091,7 +1184,8 @@ def check_counters(snap: dict, n: int, carried0: int, shadow0: int,
     for rec, (c, sh) in zip(steps, seen):
         got = rec["counts"]
         want = dict(fresh_rays=n - carried, survivors=c, flushed=n - c,
-                    shadow_slots=n, shadow_valid=sh - shadow)
+                    shadow_slots=n, shadow_valid=sh - shadow,
+                    sphere_kernel=2 * n if spheres else 0)
         bad = {k: (got[k], v) for k, v in want.items() if got[k] != v}
         if bad:
             raise AssertionError(f"tracer step {rec['step']}: counters "
@@ -1285,7 +1379,8 @@ def phase3(ren, poses_run=(0, 1, 2), label: str = "",
         if seen is not None:
             check_counters(profiling.snapshot(), cfg.num_rays, carried1,
                            shadow0 + shadow_n,
-                           [(int(c), int(sh)) for c, sh in seen])
+                           [(int(c), int(sh)) for c, sh in seen],
+                           spheres=ren.scene.n_spheres > 0)
         prof.export_chrome_trace(str(trace))
         window_ms = a.elapsed_time(b) / 2
         busy_ms, n_ops = device_busy(trace, 2)
@@ -1331,7 +1426,7 @@ def phase3(ren, poses_run=(0, 1, 2), label: str = "",
     moments = tr._moments(cfg)
     kind = kshade.variant(cfg, ren.scene, ren.device)
     textured = kind == kshade.TEXTURED
-    keys = LAUNCH_KEYS + (MOMENT2_KEYS if moments else ()) \
+    keys = LAUNCH_KEYS + SPHERE_KEYS + (MOMENT2_KEYS if moments else ()) \
         + (TEXTURED_KEYS if textured else ())
     launches = read_launches(ren, keys=keys)
     if ren.captured:
@@ -1345,6 +1440,9 @@ def phase3(ren, poses_run=(0, 1, 2), label: str = "",
             # the base shade kernel, the textured variant's two kernels,
             # or the plain body
             "shade": total_steps if kind == kshade.BASE else 0}
+    # the sphere kernel in extend and connect, unless the scene has none
+    want.update(dict.fromkeys(SPHERE_KEYS, total_steps
+                              if ren.scene.n_spheres else 0))
     if textured:
         want.update(dict.fromkeys(TEXTURED_KEYS, total_steps))
     if moments:
@@ -3048,8 +3146,8 @@ def strips_path(scene, tables, cfg: RenderConfig, reps: int = 8) -> dict:
         f"image {tuple(img.shape)}; {counted:.0f} paths counted over "
         f"{reps + 3} steps")
     if total["traverse"] != 4 * reps or total["accumulate"] != 2 * reps \
-            or per_strip != [{"traverse": 2, "accumulate": 1,
-                              "shade": 1}] * 2 \
+            or per_strip != [{"traverse": 2, "accumulate": 1, "shade": 1,
+                              "spheres_closest": 1, "spheres_any": 1}] * 2 \
             or not bool(torch.isfinite(img).all()) \
             or tuple(img.shape) != (cfg.height, cfg.width, 3):
         raise AssertionError(f"two strips: {total}, {per_strip}, "
@@ -3180,6 +3278,7 @@ def main() -> int:
     mark("captured")
     sl = kernels_at_slice(ren)
     shd = {"tri_shade": shade_at_step(ren)}
+    sph = {"main": spheres_at_slice(ren)}
     mark("kernels at the slice")
     disp = display_path(ren.scene, ren.tables, dataclasses.replace(
         cfg, denoise="on", bloom_strength=0.1, packet_kernel_mode="wave"))
@@ -3193,6 +3292,7 @@ def main() -> int:
         preset, fuse_step_chains="off"), tables=ren.tables)
     nrm = normals_at_extend(ren_p)
     shd["kernel_normals"] = shade_at_step(ren_p)
+    sph["preset"] = spheres_at_slice(ren_p)
     del ren_p
     fly = flythrough(ren.scene, ren.tables, preset)
     mark("preset and fly-through")
@@ -3488,7 +3588,24 @@ def main() -> int:
          # both queues' slots off, all fields
          "mismatches": sum(sum(q["mismatches"].values())
                            for q in tx["at_step"].values()),
-         "rays_checked": sum(q["rays"] for q in tx["at_step"].values())}]}
+         "rays_checked": sum(q["rays"] for q in tx["at_step"].values())},
+        {"name": "spheres", "route": "cuda",
+         "source": "tyrant_tpu_torch/csrc/spheres.cu",
+         # no TPU kernel: the JAX package's sphere tests are XLA fusions
+         "replaces": None,
+         # the main cell captured (replays counted), then eager
+         "launches": {k: cap["launches"][k] for k in SPHERE_KEYS},
+         "eager_launches": {k: launches[k] for k in SPHERE_KEYS},
+         "registers": {k: v for k, v in regs.items()
+                       if k.startswith("spheres_kernel<")},
+         "mismatches": sum(q["closest"]["t_mismatches"]
+                           + q["closest"]["id_mismatches"]
+                           + q["any"]["mismatches"] for q in sph.values()),
+         "rays_checked": sum(2 * q["rays"] for q in sph.values()),
+         # the main cell's 2M queue, then the preset's 131k queue
+         **{mode: sph["main"][mode] for mode in ("closest", "any")},
+         "preset": {mode: sph["preset"][mode]
+                    for mode in ("closest", "any")}}]}
     log(json.dumps({"poses": poses, "poses_wave": poses_w,
                     "queues": {q: sl[q] for q in queues + ("accumulate",)},
                     "phase2": acc,
@@ -3499,7 +3616,7 @@ def main() -> int:
                     "sphere_free": sf, "lights": lt, "captured": cap,
                     "textures": tx, "fog": fg, "sampling": smp,
                     "preset_normals": nrm, "flythrough": fly,
-                    "shade": shd,
+                    "shade": shd, "spheres": sph,
                     "registers": regs, "stage_profile": prof,
                     "viewer": view, "cli": fe_cli, "strips": strips,
                     "bench_entry": be,

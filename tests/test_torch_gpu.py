@@ -26,6 +26,7 @@ from tyrant_tpu_torch.config import small_config
 from tyrant_tpu_torch.ops import stream as plain_stream
 from tyrant_tpu_torch.ops import traverse as plain_trav
 from tyrant_tpu_torch.ops.kernels import accum as kacc
+from tyrant_tpu_torch.ops.kernels import spheres as kspheres
 from tyrant_tpu_torch.ops.kernels import stream as kstream
 from tyrant_tpu_torch.ops.kernels import traverse as ktrav
 from tyrant_tpu_torch.scene.procgen import terrain
@@ -336,7 +337,8 @@ def test_captured_step_is_bit_equal_to_eager(cuda):
                                    poses_run=(0, 1))
     assert cap["equal_after_6"]
     assert cap["launches"] == {"traverse": 2 * 28, "traverse_wave": 0,
-                               "accumulate": 28, "stream": 0, "shade": 28}
+                               "accumulate": 28, "stream": 0, "shade": 28,
+                               "spheres_closest": 28, "spheres_any": 28}
     assert all(p["device_busy_ms_per_step"] > 0 for p in cap["poses"])
     assert set(cap["chain_ms_per_step"]) == {"1", "4"}
 
@@ -352,12 +354,16 @@ def test_captured_replays_count_launches(cuda):
     ren.step(chip_smoke.camera_for_pose(0), 10)
     assert ren.replayed_steps == 9
     assert (kacc.launches, ktrav.launches) == (1, 2)  # the warm-up
+    assert (kspheres.launches_closest, kspheres.launches_any) == (1, 1)
     assert ren.replayed_launches == {"traverse": 18, "accumulate": 9,
-                                     "shade": 9}
+                                     "shade": 9, "spheres_closest": 9,
+                                     "spheres_any": 9}
     ren.image()
     ren.image()  # the same pose: the AOV pass is not run again
     assert ktrav.launches == 3  # its warm-up
+    assert kspheres.launches_closest == 2
     assert ren.replayed_launches["traverse"] == 19
+    assert ren.replayed_launches["spheres_closest"] == 10
     assert set(ren._graphs) == {"step", "aov", ("image", True, False)}
 
 
@@ -674,7 +680,8 @@ def test_strips_at_small_size(cuda):
     assert out["two_launches"]["traverse"] == 12
     assert out["two_launches"]["accumulate"] == 6
     assert out["two_strip_launches"] == [{"traverse": 2, "accumulate": 1,
-                                          "shade": 1}] * 2
+                                          "shade": 1, "spheres_closest": 1,
+                                          "spheres_any": 1}] * 2
 
 
 def test_strip_step_with_row_offset_on_the_card(cuda):

@@ -180,6 +180,7 @@ def test_counters_equal_a_recount(scene):
     assert c["unoccluded"] == int((lit != 0).any(1).sum())
     assert 0 < c["unoccluded"] <= c["shadow_valid"]
     assert c["flushed"] == n - int(new.n_carried)
+    assert c["sphere_kernel"] == 0  # the CPU takes the plain sphere test
 
 
 @pytest.fixture(scope="module")
@@ -381,7 +382,7 @@ def test_captured_markers_on_the_card():
         st = ren.step(_cam(0.0), 1)
         seen.append((int(st.n_carried), int(st.shadow_rays)))
     chip_smoke.check_counters(profiling.snapshot(), cfg.num_rays, carried0,
-                              shadow0, seen)
+                              shadow0, seen, spheres=True)
 
 
 @pytest.mark.gpu

@@ -1,5 +1,6 @@
 """Intersection primitives, the port of ``tyrant_tpu/ops/intersect.py``:
 the slab test, Möller-Trumbore with back-face culling, the analytic sphere
+(closest and any hit: the plain versions of ``ops/kernels/spheres.py``)
 and the brute-force closest hit over every triangle (the no-BVH oracle
 that the tests hold the traversal against)."""
 
@@ -83,6 +84,14 @@ def intersect_spheres(origin, direction, centers, radii):
     t, idx = torch.min(t_all, dim=1)
     idx = torch.where(t < VERY_FAR, idx, torch.full_like(idx, -1))
     return t, idx.to(torch.int32)
+
+
+def any_hit_spheres(origin, direction, centers, radii, max_dist):
+    """Whether a sphere occludes each ray before ``max_dist`` [N]: bool
+    [N], True where some sphere lies at 0 < t with t + EPSILON <
+    max_dist (never where max_dist <= 0)."""
+    t_all = ray_spheres(origin, direction, centers, radii)
+    return ((t_all > 0.0) & ((t_all + EPSILON) < max_dist[:, None])).any(1)
 
 
 def intersect_triangles_brute(origin, direction, vert, e1, e2, t_max=None):

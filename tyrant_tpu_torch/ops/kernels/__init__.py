@@ -15,7 +15,9 @@ _COUNTERS = {"traverse": ("traverse", "launches"),
              "stream": ("stream", "launches"),
              "shade": ("shade", "launches"),
              "shade_surface": ("shade", "launches_surface"),
-             "shade_textured": ("shade", "launches_textured")}
+             "shade_textured": ("shade", "launches_textured"),
+             "spheres_closest": ("spheres", "launches_closest"),
+             "spheres_any": ("spheres", "launches_any")}
 
 
 def _module(name: str):

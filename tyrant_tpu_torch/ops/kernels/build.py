@@ -25,6 +25,8 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "tyrant_tpu_torch"
@@ -174,6 +176,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.tyrant_shade_surface.restype = i
     lib.tyrant_shade_textured.argtypes = [p] * 14 + [i] + [p] * 13
     lib.tyrant_shade_textured.restype = i
+    f = ctypes.c_float
+    lib.tyrant_spheres_closest.argtypes = [p, p, p, p, i, i, f, f, p, p, p]
+    lib.tyrant_spheres_closest.restype = i
+    lib.tyrant_spheres_any.argtypes = [p, p, p, p, i, i, f, p, p, p, p, p]
+    lib.tyrant_spheres_any.restype = i
     lib.tyrant_trace_marker.argtypes = [i, p, p, i, i, i, i, p]
     lib.tyrant_trace_marker.restype = i
     lib.tyrant_trace_count.argtypes = [p, p, p, p, i, i, p]
@@ -187,3 +194,12 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.tyrant_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def launch(entry: str, device, *args) -> None:
+    """Call the library's C entry point ``entry`` with ``args`` and the
+    current stream of ``device``, and raise on a CUDA error."""
+    lib = load()
+    err = getattr(lib, entry)(*args,
+                              torch.cuda.current_stream(device).cuda_stream)
+    check(lib, err, f"{entry} launch")

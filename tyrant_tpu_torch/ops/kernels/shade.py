@@ -194,15 +194,6 @@ def _pointers(dev, args) -> list:
     return [None if a is None else a[1].data_ptr() for a in args]
 
 
-def _launch(entry: str, dev, *args) -> None:
-    """Call the library's ``entry`` with ``args`` and the current stream,
-    and raise on a CUDA error."""
-    lib = build.load()
-    err = getattr(lib, entry)(*args,
-                              torch.cuda.current_stream(dev).cuda_stream)
-    build.check(lib, err, f"{entry} launch")
-
-
 def _ray_inputs(cfg, rays, t, ident, is_tri) -> list:
     """The queue's tensors the kernels read, as _pointers takes them."""
     n = cfg.num_rays
@@ -264,7 +255,7 @@ def _shade_launch(entry: str, cfg, scene, sky_params, sun_dir, rays, t,
         ("frame", frame, torch.int64, ())])
     result, outs = _outputs(cfg.num_rays, dev, rays["pixel"])
     consts = _consts(cfg, scene, sky_params, row_offset)
-    _launch(entry, dev, *ptrs, ctypes.addressof(consts), *gates,
+    build.launch(entry, dev, *ptrs, ctypes.addressof(consts), *gates,
             *(x.data_ptr() for x in outs))
     return result
 
@@ -349,7 +340,7 @@ def surface(cfg, scene, rays, t, ident, is_tri, frame, tri_normal=None,
                         else scene.tex_data.shape[0],
                         gates=_gates(scene, tri_normal is not None),
                         bilinear=int(cfg.texture_filter == "bilinear"))
-    _launch("tyrant_shade_surface", dev, *ptrs, ctypes.addressof(consts),
+    build.launch("tyrant_shade_surface", dev, *ptrs, ctypes.addressof(consts),
             ctypes.addressof(sc), record.data_ptr())
     launches_surface += 1
     return record

@@ -67,12 +67,12 @@ import torch
 from . import adaptive as adaptive_mod
 from . import sky as skymod
 from .camera import Camera, CameraParams
-from .config import EPSILON, INV_PI, PI, VERY_FAR, RenderConfig
+from .config import INV_PI, PI, VERY_FAR, RenderConfig
 from .denoise import atrous_denoise
 from .device import resolve
 from .ops import kernels, rng, sobol
-from .ops.intersect import intersect_spheres, ray_spheres
 from .ops.kernels import shade as kshade
+from .ops.kernels import spheres as kspheres
 from .ops.kernels.accum import accumulate_terminated, sentinel
 from .ops.kernels.traverse import (PacketTables, any_hit_packets,
                                    closest_hit_packets)
@@ -414,8 +414,8 @@ def sphere_pass(origin, direction, scene: SceneData):
         return (torch.full((n,), VERY_FAR, dtype=origin.dtype,
                            device=origin.device),
                 torch.full((n,), -1, dtype=torch.int32, device=origin.device))
-    return intersect_spheres(origin, direction, scene.sphere_center,
-                             scene.sphere_radius)
+    return kspheres.closest(origin, direction, scene.sphere_center,
+                            scene.sphere_radius)
 
 
 def _intersect_scene(origin, direction, scene: SceneData,
@@ -1808,16 +1808,18 @@ def _shade_plain(cfg: RenderConfig, scene: SceneData,
 def _connect(scene: SceneData, shadow, tables: PacketTables,
              wave: bool = False):
     """Shadow rays: BVH any hit plus the sphere any hit
-    ((t + eps) < max distance).  Returns the unoccluded contribution."""
+    ((t + eps) < max distance; none in a scene without spheres).  Returns
+    the unoccluded contribution."""
     o, sdir = shadow["origin"], shadow["direction"]
     valid = shadow["valid"]
     maxd = torch.where(valid, shadow["max_dist"],
                        torch.zeros_like(shadow["max_dist"]))
     occluded = any_hit_packets(o, sdir, maxd, tables,
                                wave=wave)  # invalid: maxd 0
-    t_all = ray_spheres(o, sdir, scene.sphere_center, scene.sphere_radius)
-    sph_occ = ((t_all > 0.0) & ((t_all + EPSILON) < maxd[:, None])).any(1)
-    occluded = occluded | sph_occ
+    if scene.n_spheres:
+        occluded = kspheres.any_hit(o, sdir, scene.sphere_center,
+                                    scene.sphere_radius, occluded,
+                                    shadow["max_dist"], valid)
     if _prof.ON:
         _prof.defer("unoccluded", lambda: (valid & ~occluded).sum())
     return torch.where(_col(valid & ~occluded), shadow["color"],

@@ -79,10 +79,12 @@ CLOCK = 10  # the calibration's marker, into a buffer of its own
 # triangle hits that tap an albedo map, slots whose hit passed through a
 # cutout or blend surface, and hits shaded as the GGX conductor, counted
 # by the plain body or from the textured kernel's surface record (0 where
-# the base shade kernel shaded)
+# the base shade kernel shaded); sphere_kernel: the slots the sphere
+# kernel tested (extend's queue plus connect's, 0 where the plain test ran)
 COUNTERS = ("fresh_rays", "tri_hits", "sphere_hits", "survivors",
             "roulette_kills", "shadow_slots", "shadow_valid", "unoccluded",
-            "flushed", "shade_fused", "tex_hits", "alpha_pass", "ggx_hits")
+            "flushed", "shade_fused", "tex_hits", "alpha_pass", "ggx_hits",
+            "sphere_kernel")
 # a whole 51 s benchmark window at the fastest cell's rate (about 260
 # steps a second), and more: 2.4 MB of markers and counters a device
 RING_STEPS = 16384
@@ -348,6 +350,14 @@ def defer(counter: str, fn) -> None:
     """``fn()`` gives ``counter``'s value for this step, computed by
     :func:`count` after the step's end marker.  Call only when ON."""
     _tracer.deferred[counter] = fn
+
+
+def defer_add(counter: str, n: int) -> None:
+    """Add ``n`` to ``counter``'s value for this step: the calls of a step
+    sum.  Call only when ON."""
+    prev = _tracer.deferred.get(counter)
+    _tracer.deferred[counter] = (lambda: n) if prev is None \
+        else (lambda: prev() + n)
 
 
 def count(device, **values) -> None:
