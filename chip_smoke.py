@@ -64,7 +64,11 @@ on the card against the CPU.
 
 Then the fog path: the main scene under height fog (``FOG``, the slab
 over the terrain's z range), eager and captured at the three poses, with
-the wave kernel at pose 0, and once with the lights "few" and MIS; and
+the wave kernel at pose 0, once with the lights "few" and MIS, and
+once in the ``fog_lights_1m`` benchmark configuration's combination (the
+4,096 lamps of "many", power picking by alias rows, no MIS, no envmap),
+captured at the three poses, each pose's state bit for bit the eager
+step's (``fog_lamps_captured``); and
 the textures path: ``scene.files.textured_scene`` on the terrain (albedo,
 normal and roughness/metal maps, 65,536 alpha-cutout leaves and 1,024
 blend triangles, clamp and mirrored wraps, from numpy in memory), eager
@@ -2492,6 +2496,7 @@ def fog_path(scene_host, cfg: RenderConfig, poses_run=(0, 1, 2),
         TRACE_DIR / "trace_fog-lights-mono_pose0.json", 2)
     log_stage("fog with the lights few, mis on", split["lights"])
     del ren_l
+    lamps = fog_lamps_captured(scene_host, cfg_f, poses_run)
     v0, v1, v2 = terrain(n_quads=48, towers=4)
     small = Scene.from_triangles(v0, v1, v2)
     zs = np.concatenate([v0, v1, v2])[:, 2]
@@ -2503,7 +2508,59 @@ def fog_path(scene_host, cfg: RenderConfig, poses_run=(0, 1, 2),
                 poses_lights=poses_l, shade=split,
                 launches=dict(eager=launches, captured=cap["launches"],
                               wave=launches_w, lights=launches_l),
-                queues=queues, card_vs_cpu=mad)
+                queues=queues, card_vs_cpu=mad, lamps=lamps)
+
+
+# the fog_lights_1m configuration's lights: the lamps of "many" without its
+# envmap and MIS
+FOG_LAMPS = dict(n_tri=4096, envmap=None,
+                 render={"mis": False, "light_sampling": "power"})
+
+
+def fog_lamps_captured(scene_host, cfg_f: RenderConfig, poses_run=(0, 1, 2),
+                       steps: int = 3) -> dict:
+    """The ``fog_lights_1m`` combination on the main scene under the fog
+    of ``cfg_f``: :data:`FOG_LAMPS` (4,096 lamp triangles, three emissive
+    spheres, a point, a spot and a directional light: 4,102 lights, an
+    alias pick, no MIS).  An eager and a captured Renderer step ``steps``
+    times at each pose of ``poses_run`` in turn, and after each pose every
+    RenderState field must be equal bit for bit; then phase 3 on the
+    captured renderer at those poses."""
+    sc, over, _ = light_scene(scene_host, "fog-lamps", SCENE_DIR, FOG_LAMPS)
+    cfg_l = dataclasses.replace(cfg_f, **over)
+    eager = tr.Renderer(sc, dataclasses.replace(cfg_l,
+                                                fuse_step_chains="off"))
+    sd = eager.scene
+    _, total = tr._n_lights(sd)
+    if not (total > 64 and tr._light_power_mode(cfg_l, sd, total)
+            and cfg_l.mis == "off" and not sd.has_envmap
+            and tr._fog_on(cfg_l)):
+        raise AssertionError(f"the fog lamps scene is not fog_lights_1m's "
+                             f"combination: {total} lights, light_sampling "
+                             f"{cfg_l.light_sampling}, mis {cfg_l.mis}")
+    cap = tr.Renderer(sd, dataclasses.replace(cfg_l,
+                                              fuse_step_chains="auto"),
+                      tables=eager.tables)
+    if eager.captured or not cap.captured:
+        raise AssertionError("fuse_step_chains did not select the step")
+    for i in poses_run:
+        for ren in (eager, cap):
+            ren.step(camera_for_pose(i), steps)
+        torch.cuda.synchronize()
+        if not states_equal(eager.state, cap.state):
+            bad = [k for k in STATE_FIELDS if not torch.equal(
+                getattr(eager.state, k), getattr(cap.state, k))]
+            raise AssertionError(f"fog lamps: captured and eager states "
+                                 f"differ at pose {i} in: {bad}")
+    log(f"fog lamps ({total} lights, alias pick, no MIS): captured bit for "
+        f"bit the eager step after {steps} steps at each of poses "
+        f"{list(poses_run)}; {cap.replayed_steps} replayed")
+    del eager
+    poses, launches = phase3(cap, poses_run, "fog-lamps-")
+    del cap
+    torch.cuda.empty_cache()
+    return dict(lights=total, equal_at_poses=list(poses_run), poses=poses,
+                launches=launches)
 
 
 # the camera modes of the sampling path, each eager at pose 0 (the crop: the

@@ -6,7 +6,8 @@ recount from the stages' outputs, the clock fit maps its pairs exactly,
 and the Chrome export loads.  On the CPU the markers take the host clock.
 The textured cases hold the plain shade body's ``fetch_end`` marker
 and its counters of map taps, pass-throughs and GGX hits against a
-recount.  The last three tests (marked ``gpu``) hold the markers and
+recount; a fogged many-light case its ``nee_end`` marker and its
+counters of medium events and lamp and delta-light picks.  The last three tests (marked ``gpu``) hold the markers and
 counters of a captured step on the card against CUDA events and the
 step's state, the tracer's kernels against their CPU versions, and a
 captured textured step's counters (the textured shade kernels') against
@@ -249,8 +250,81 @@ def test_untextured_step_counts_no_texture_work(scene):
     for s in profiling.snapshot()["steps"]:
         assert s["counts"]["tex_hits"] == s["counts"]["alpha_pass"] \
             == s["counts"]["ggx_hits"] == 0
+        assert s["counts"]["fog_events"] == s["counts"]["tri_light_picks"] \
+            == s["counts"]["delta_light_picks"] == 0
         assert s["marks"]["shade"] <= s["marks"]["fetch_end"] \
-            <= s["marks"]["connect"]
+            <= s["marks"]["nee_end"] <= s["marks"]["connect"]
+
+
+@pytest.fixture(scope="module")
+def fog_lights(tmp_path_factory):
+    """A small fogged many-light scene: 80 lamp triangles of the small
+    terrain, the lights description's spheres (three emissive) and its
+    point, spot and directional lights (86 lights: an alias pick), and the
+    config's height fog over the terrain's z range."""
+    from tyrant_tpu_torch.scene.description import load_description
+    from tyrant_tpu_torch.scene.scene import DeltaLights
+    v0, v1, v2 = terrain(n_quads=8, towers=2)
+    refl, color = files.lamp_triangles(len(v0), 80)
+    spheres = load_description(files.write_lights_description(
+        tmp_path_factory.mktemp("fog_lights") / "lights.json")).scene.spheres
+    sc = Scene.from_triangles(v0, v1, v2, spheres=spheres, tri_refl=refl,
+                              tri_color=color, builder="numpy",
+                              delta_lights=DeltaLights.from_specs(
+                                  files.DELTA_LIGHTS))
+    zs = np.concatenate([v0, v1, v2])[:, 2]
+    cfg = dataclasses.replace(
+        CFG, num_rays=1 << 12, fog="on", fog_sigma_s=0.02,
+        fog_sigma_a=0.005, fog_g=0.6, fog_falloff=0.05,
+        fog_z_min=float(zs.min()), fog_z_max=float(zs.max()),
+        light_sampling="power")
+    return sc, cfg
+
+
+def test_fog_lights_counters_equal_a_recount(fog_lights, monkeypatch):
+    """One step of ``render_step`` on the fogged many-light scene with the
+    tracer on: ``fog_events``, ``tri_light_picks`` and
+    ``delta_light_picks`` against the masks of the plain shade body
+    recomputed from the same state, each above 0, and the markers in the
+    order ``shade`` < ``fetch_end`` < ``nee_end`` < ``connect``."""
+    scene, cfg = fog_lights
+    ren = tr.Renderer(scene, cfg, device="cpu")
+    sd = ren.scene
+    assert sd.n_tri_lights + sd.n_delta_lights + len(sd.light_indices) > 64
+    ren.step(_cam(0.0), 2)          # carried rays in the queue
+    st = ren.state
+    cam = _cam(0.0).to_device(cfg, ren.device)
+    seen = {}
+    weights = tr._shade_nee_weights
+
+    def spy(*a, **k):
+        out = weights(*a, **k)
+        seen.update(nee=a[10], is_fog=k["is_fog"], is_diff=out[5],
+                    is_phong=out[6])
+        return out
+    monkeypatch.setattr(tr, "_shade_nee_weights", spy)
+    rays = tr.merge_queue(cfg, st, cam)
+    t, ident, is_tri = tr._intersect_scene(
+        rays["origin"], rays["direction"], sd, ren.tables)
+    tr._shade_plain(cfg, sd, ren.sky_params, ren.sun_dir, rays, t, ident,
+                    is_tri, tr._salted_frame(cfg, st.frame))
+    monkeypatch.undo()
+    pick, first = seen["nee"]["pick"], len(sd.light_indices)
+    lit = (seen["is_diff"] | seen["is_phong"] | seen["is_fog"]) \
+        & ~seen["nee"]["choose_sun"]
+    want = {"fog_events": int(seen["is_fog"].sum()),
+            "tri_light_picks": int((lit & (pick >= first) & (
+                pick < first + sd.n_tri_lights)).sum()),
+            "delta_light_picks": int((lit & (
+                pick >= first + sd.n_tri_lights)).sum())}
+    profiling.enable()
+    tr.render_step(st, sd, cam, ren.sun_dir, cfg=cfg, tables=ren.tables,
+                   sky_params=ren.sky_params)
+    (rec,) = profiling.snapshot()["steps"]
+    assert {k: rec["counts"][k] for k in want} == want
+    assert min(want.values()) > 0, want
+    m = rec["marks"]
+    assert m["shade"] < m["fetch_end"] < m["nee_end"] < m["connect"]
 
 
 def test_ring_wraps_and_counts_a_step_a_step(scene):

@@ -23,9 +23,9 @@ extern "C" const char* tyrant_error_string(int err) {
 
 namespace {
 
-// template instances 0 .. MAX_MARKER - 1: the tracer's ten markers and its
-// clock calibration's
-constexpr int MAX_MARKER = 11;
+// template instances 0 .. MAX_MARKER - 1: the tracer's eleven markers and
+// its clock calibration's
+constexpr int MAX_MARKER = 12;
 constexpr int MAX_COUNTS = 32;  // counters a step, one thread each
 
 __device__ __forceinline__ long long global_ns() {
@@ -76,7 +76,7 @@ void launch_marker(int k, long long* ring, long long* step, int slots,
 
 }  // namespace
 
-// Marker `k` (0 <= k < columns, k < 11) into ring [slots, columns] int64 at
+// Marker `k` (0 <= k < columns, k < 12) into ring [slots, columns] int64 at
 // row (*step - back) mod slots; with `advance`, *step += 1 after it.
 // Launches on `stream`; returns cudaGetLastError(), or
 // cudaErrorInvalidValue for a marker outside the row.

@@ -59,6 +59,7 @@ Renderer donates its state).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -1370,6 +1371,23 @@ def _shade_nee_weights(cfg: RenderConfig, scene: SceneData,
             is_diff, is_phong, bsdf_pdf_toward, p_sun_sa)
 
 
+def _defer_light_picks(scene: SceneData, nee, *samples_lights) -> None:
+    """Leave the counters ``tri_light_picks`` and ``delta_light_picks``
+    for the step's end: the slots whose NEE took the light strategy at a
+    point that samples lights (one of the masks ``samples_lights``, None
+    where a material is absent) and picked a lamp triangle or a delta
+    light."""
+    pick = nee["pick"]
+    first = len(scene.light_indices)
+    lit = functools.reduce(torch.logical_or, [m for m in samples_lights
+                                               if m is not None])
+    lit = lit & ~nee["choose_sun"]
+    _prof.defer("tri_light_picks", lambda: (
+        lit & (pick >= first) & (pick < first + scene.n_tri_lights)).sum())
+    _prof.defer("delta_light_picks", lambda: (
+        lit & (pick >= first + scene.n_tri_lights)).sum())
+
+
 def _glass_eta(cfg: RenderConfig, scene: SceneData, rays, direct, hit,
                refl, is_tri, rough_tri, frame, slot, sob1=None,
                row_offset: int = 0):
@@ -1641,9 +1659,10 @@ def _shade_plain(cfg: RenderConfig, scene: SceneData,
     medium event before its surface (pseudo-material FOG); a cutout hit
     below its alpha threshold (0.5, or a uniform on a blend triangle)
     passes through (PASS): no shading, no NEE, no colour.  With the tracer
-    on, the ``fetch_end`` marker follows the surface fetch, and the
-    counters ``tex_hits``, ``alpha_pass`` and ``ggx_hits`` are left for
-    the step's end."""
+    on, the ``fetch_end`` marker follows the surface fetch and ``nee_end``
+    the next-event weights, and the counters ``tex_hits``, ``alpha_pass``,
+    ``ggx_hits``, ``fog_events``, ``tri_light_picks`` and
+    ``delta_light_picks`` are left for the step's end."""
     n = cfg.num_rays
     eps = cfg.epsilon
     d = rays["direction"]
@@ -1657,6 +1676,8 @@ def _shade_plain(cfg: RenderConfig, scene: SceneData,
         t, is_fog = _shade_fog_sample(cfg, rays, t, frame, slot,
                                       None if sob is None else sob[0],
                                       row_offset)
+        if _prof.ON:
+            _prof.defer("fog_events", lambda: is_fog.sum())
 
     hit = t < VERY_FAR
     t_safe = torch.where(hit, t, torch.zeros_like(t))
@@ -1737,6 +1758,11 @@ def _shade_plain(cfg: RenderConfig, scene: SceneData,
      is_phong, bsdf_pdf_toward, p_sun_sa) = _shade_nee_weights(
         cfg, scene, sky_params, d, o, normal, direct, hit, refl, sun_dir,
         nee, ggx=None if ggx is None else (*ggx, obj_color), is_fog=is_fog)
+    if _prof.ON:
+        _prof.mark(d.device, _prof.NEE_END)
+        if nee["pick"] is not None:
+            _defer_light_picks(scene, nee, is_diff, is_phong,
+                               None if ggx is None else ggx[0], is_fog)
     seed, new_dir, direct, new_last_spec, next_bsdf_pdf, origin_out = \
         _shade_bounce(cfg, scene, rays, d, o, normal, direct, hit, refl,
                       is_tri, is_sphere, srow, rough_tri, outside, is_diff,

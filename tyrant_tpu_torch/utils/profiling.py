@@ -22,7 +22,9 @@ records
   (:data:`MARKERS`: the start of each of :data:`STAGES`, the step's end,
   the display resolve's start and end; then :data:`INNER`, the markers
   inside a stage: ``fetch_end``, where the shade stage's surface fetch
-  ends, which a step shaded by the base shade kernel leaves empty).
+  ends, which a step shaded by the base shade kernel leaves empty, and
+  ``nee_end``, where the plain shade body's next-event weights end, which
+  a step shaded by a shade kernel leaves empty).
   Captured into a CUDA graph, the markers record every replay with no
   host sync.  A stage
   (:func:`stage`) launches its marker and, under a profiler, is also a
@@ -70,21 +72,27 @@ OFF = contextlib.nullcontext()  # what an instrumentation point enters when off
 STAGES = ("raygen", "extend", "shade", "connect", "sort", "accumulate")
 MARKERS = STAGES + ("end", "image", "image_end")
 END, IMAGE, IMAGE_END = 6, 7, 8
-INNER = ("fetch_end",)  # markers inside a stage, after MARKERS in a row
-FETCH_END = 9
+INNER = ("fetch_end", "nee_end")  # markers inside a stage, after MARKERS
+FETCH_END, NEE_END = 9, 10
 COLUMNS = MARKERS + INNER  # a step's row of the ring
-CLOCK = 10  # the calibration's marker, into a buffer of its own
+CLOCK = 11  # the calibration's marker, into a buffer of its own
 # shade_fused: the slots a shade kernel shaded (the queue, or 0 where
 # the step took the plain shade body); tex_hits, alpha_pass, ggx_hits: the
 # triangle hits that tap an albedo map, slots whose hit passed through a
 # cutout or blend surface, and hits shaded as the GGX conductor, counted
 # by the plain body or from the textured kernel's surface record (0 where
 # the base shade kernel shaded); sphere_kernel: the slots the sphere
-# kernel tested (extend's queue plus connect's, 0 where the plain test ran)
+# kernel tested (extend's queue plus connect's, 0 where the plain test ran);
+# fog_events: the segments that ended in a medium event; tri_light_picks,
+# delta_light_picks: the slots whose NEE sample took the light strategy
+# at a point that samples lights (DIFF, PHONG, GGX or a medium event) and
+# picked a lamp triangle or a delta light; these three counted by the
+# plain body alone
 COUNTERS = ("fresh_rays", "tri_hits", "sphere_hits", "survivors",
             "roulette_kills", "shadow_slots", "shadow_valid", "unoccluded",
             "flushed", "shade_fused", "tex_hits", "alpha_pass", "ggx_hits",
-            "sphere_kernel")
+            "sphere_kernel", "fog_events", "tri_light_picks",
+            "delta_light_picks")
 # a whole 51 s benchmark window at the fastest cell's rate (about 260
 # steps a second), and more: 2.4 MB of markers and counters a device
 RING_STEPS = 16384
@@ -420,9 +428,10 @@ def snapshot() -> dict | None:
 def _chrome_events(snap: dict) -> list[dict]:
     """A :func:`snapshot` as Chrome trace events (microseconds on the host
     clock): host spans on one track; each device's stages, from a marker
-    to the next, its display resolves and its shade stages' surface
-    fetches (``shade`` to ``fetch_end``) on three more; its counters, a
-    point at each step's end."""
+    to the next, its display resolves, its shade stages' surface fetches
+    (``shade`` to ``fetch_end``) and the plain body's next-event samples
+    and weights (``fetch_end`` to ``nee_end``) on four more; its counters,
+    a point at each step's end."""
     ev = [{"ph": "M", "name": "process_name", "pid": "host",
            "args": {"name": "host"}}]
     for i, s in enumerate(snap["spans"]):
@@ -437,11 +446,13 @@ def _chrome_events(snap: dict) -> list[dict]:
         pid, m = f"device {rec['device']}", rec["marks"]
         for name, a, b in [*zip(STAGES, MARKERS[:END], MARKERS[1:END + 1]),
                            ("image", "image", "image_end"),
-                           ("surface_fetch", "shade", "fetch_end")]:
+                           ("surface_fetch", "shade", "fetch_end"),
+                           ("nee", "fetch_end", "nee_end")]:
             if m[a] is not None and m[b] is not None:
                 ev.append({"ph": "X", "cat": "stage", "name": name,
                            "pid": pid,
-                           "tid": name if name in ("image", "surface_fetch")
+                           "tid": name if name in ("image", "surface_fetch",
+                                                   "nee")
                            else "step",
                            "ts": m[a] / 1e3, "dur": (m[b] - m[a]) / 1e3,
                            "args": {"step": rec["step"]}})
